@@ -1,0 +1,172 @@
+"""The DRQN Q-net (diral_tpu/models/qnets.py; reference
+algorithms/drl_drqn.py:109-155): BasicLSTMCell(layers[0]) over the
+history window, last-step output -> dense(layers[1]) + relu + layer_norm
+(-> dense(layers[2]) + relu + layer_norm) -> linear head.  The MLP branch
+(``use_lstm_input=False``) replaces the LSTM with dense + relu +
+layer_norm.
+
+Parameters live in an ``nn.Module`` whose names follow the JAX tree
+(``lstm.w``, ``lstm.b``, ``fc2.w``, ``ln2.scale``, ...) and keep JAX's
+[in, out] weight layout, so a JAX parameter tree maps onto it name for
+name (convert.py).  The functions take the nested-dict view
+(``DRQN.tree()``), as the JAX ones take the pytree.  The PS-DQN /
+PS-DRQN nets and the triple/dual train forwards come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from diral_tpu_torch.config import AgentConfig
+from diral_tpu_torch.models.recurrent import lstm_init, lstm_scan
+from diral_tpu_torch.ops import lstm_window
+
+_MATMUL_GROUPS = ("lstm", "fc1", "fc2", "fc3", "head")
+
+
+def dense_init(generator, in_dim, out_dim, dtype=torch.float32, device=None):
+    """Glorot-uniform weights, zero bias (the JAX package's default)."""
+    lim = math.sqrt(6.0 / (in_dim + out_dim))
+    w = torch.empty((in_dim, out_dim), dtype=dtype, device=device)
+    w.uniform_(-lim, lim, generator=generator)
+    return {"w": w, "b": torch.zeros(out_dim, dtype=dtype, device=device)}
+
+
+def layer_norm_init(dim, dtype=torch.float32, device=None):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def dense(params, x):
+    return x @ params["w"] + params["b"]
+
+
+def layer_norm(params, x, eps=1e-6):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * params["scale"] + params["bias"]
+
+
+class DRQN(nn.Module):
+    """Parameter container: one submodule per JAX group, one parameter per
+    leaf (state_dict keys ``lstm.w``, ``fc2.b``, ``ln2.scale``, ...)."""
+
+    def __init__(self, tree: dict, cfg: AgentConfig):
+        super().__init__()
+        self.cfg = cfg
+        for group, leaves in tree.items():
+            sub = nn.Module()
+            for name, value in leaves.items():
+                sub.register_parameter(
+                    name, nn.Parameter(torch.as_tensor(value)))
+            self.add_module(group, sub)
+
+    def tree(self) -> dict:
+        return {g: dict(m.named_parameters(recurse=False))
+                for g, m in self.named_children()}
+
+    def forward(self, x):
+        return drqn_apply(self, x, self.cfg)
+
+
+def drqn_init(generator: torch.Generator, state_dim: int, action_dim: int,
+              cfg: AgentConfig, dtype=torch.float32, device=None) -> DRQN:
+    layers = cfg.network.layers
+    if cfg.network.use_lstm_input:
+        tree = {"lstm": lstm_init(generator, state_dim, layers[0], dtype,
+                                  device)}
+    else:
+        tree = {"fc1": dense_init(generator, state_dim, layers[0], dtype,
+                                  device),
+                "ln1": layer_norm_init(layers[0], dtype, device)}
+    tree["fc2"] = dense_init(generator, layers[0], layers[1], dtype, device)
+    tree["ln2"] = layer_norm_init(layers[1], dtype, device)
+    if len(layers) == 3:
+        tree["fc3"] = dense_init(generator, layers[1], layers[2], dtype,
+                                 device)
+        tree["ln3"] = layer_norm_init(layers[2], dtype, device)
+    tree["head"] = dense_init(generator, layers[-1], action_dim, dtype,
+                              device)
+    return DRQN(tree, cfg)
+
+
+def _lstm_last(lstm_params, x, impl: str, step: int):
+    """Last-step LSTM hidden over the history window -> [B, H].
+
+    ``x`` is [B, T, D] or the flat padded window [B, T*Dp].  ``impl``:
+    "auto" launches the K1 kernel on a CUDA device when dtype/shape allow
+    (ops/lstm_window.supported), else the canonical ``lstm_scan``;
+    "pallas" forces the kernel wrapper (raising where it cannot serve);
+    "xla" forces ``lstm_scan`` (qnets.py:70-108)."""
+    hidden = lstm_params["w"].shape[1] // 4
+    d = lstm_params["w"].shape[0] - hidden
+    flat = x.dim() == 2
+    if impl == "xla":
+        use_kernel = False
+    else:
+        ok = lstm_window.supported(x.dtype, hidden)
+        if impl == "pallas":
+            if not ok:
+                raise ValueError(
+                    f"network.lstm_impl='pallas' unsupported for "
+                    f"dtype={x.dtype}, hidden={hidden}")
+            use_kernel = True
+        elif impl == "auto":
+            use_kernel = ok and x.device.type == "cuda"
+        else:
+            raise ValueError(f"bad lstm_impl {impl!r}")
+    if use_kernel:
+        if flat:
+            return lstm_window.lstm_last_flat(x, lstm_params["w"],
+                                              lstm_params["b"], step)
+        return lstm_window.lstm_last(x, lstm_params["w"], lstm_params["b"])
+    if flat:
+        x = lstm_window.unflatten_window(x, step, d)
+    _, hs = lstm_scan(lstm_params, x)
+    return hs[:, -1, :]
+
+
+def _maybe_bf16(params, x, cfg: AgentConfig):
+    bf16 = cfg.network.compute_dtype == "bfloat16"
+    if bf16:
+        def cast(leaves):
+            return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+                    for k, v in leaves.items()}
+        params = {k: cast(v) if k in _MATMUL_GROUPS else v
+                  for k, v in params.items()}
+        x = x.to(torch.bfloat16)
+    return params, x, bf16
+
+
+def _norm(ln, hh, bf16: bool):
+    # layer_norm statistics in f32 even under bf16 compute
+    if bf16:
+        return layer_norm(ln, hh.to(torch.float32)).to(torch.bfloat16)
+    return layer_norm(ln, hh)
+
+
+def _head_stack(params, h, cfg: AgentConfig, bf16: bool):
+    """The post-feature dense/LN/head tail of the DRQN net."""
+    h = _norm(params["ln2"], torch.relu(dense(params["fc2"], h)), bf16)
+    if "fc3" in params:
+        h = _norm(params["ln3"], torch.relu(dense(params["fc3"], h)), bf16)
+    out = dense(params["head"], h)
+    return out.to(torch.float32) if bf16 else out
+
+
+def drqn_apply(params, x, cfg: AgentConfig):
+    """x: [B, T, D] or flat [B, T*Dp] window (LSTM path) or [B, D] (MLP
+    path) -> Q [B, A].  ``params``: a DRQN module or its ``tree()``."""
+    if isinstance(params, DRQN):
+        params = params.tree()
+    params, x, bf16 = _maybe_bf16(params, x, cfg)
+    if cfg.network.use_lstm_input:
+        h = _lstm_last(params["lstm"], x, cfg.network.lstm_impl,
+                       cfg.step_size)
+    else:
+        h = _norm(params["ln1"], torch.relu(dense(params["fc1"], x)), bf16)
+    return _head_stack(params, h, cfg, bf16)

@@ -1,0 +1,131 @@
+"""Build and bind the port's CUDA kernels (``diral_tpu_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes``; no PyTorch header is
+included, so a build takes seconds.  Libraries go to
+``build/diral_tpu_torch/`` at the repository root, named by the source's
+content hash, so an edited source is rebuilt and an unchanged one is
+reused.  ``build_all`` starts one ``nvcc`` per missing library, all at
+once.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: the channel
+walk and the histogram are meant to match their plain PyTorch versions
+bit for bit, and eager PyTorch rounds ``a*b + c`` as two operations.
+Never ``--use_fast_math`` (it would also swap ``sqrtf``/``expf``/division
+for approximations).  Kernels that want a fused multiply-add ask for it
+with ``__fmaf_rn`` where the product is exact.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "diral_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of diral_tpu_torch build only "
+        "where the CUDA toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, in parallel.
+    Returns {name: ptxas report} for the sources compiled in this call."""
+    names = sources() if names is None else list(names)
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
+    reports, failed = {}, []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        reports[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, _target(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(lib: ctypes.CDLL, symbol: str, argtypes: list, device,
+           *args) -> None:
+    """Call the C entry ``symbol`` of ``lib`` on ``device``'s current
+    stream.  Tensors in ``args`` are passed as their data pointers;
+    ``argtypes`` declares every argument but the stream, which each entry
+    takes last.  Each entry returns the ``cudaError_t`` of its launch; a
+    non-zero one raises (the library's ``dtt_error_string`` names it)."""
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.dtt_error_string
+        msg.restype, msg.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        raise RuntimeError(f"{symbol}: CUDA error {err}: "
+                           f"{msg(err).decode(errors='replace')}")
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape,
+    contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,92 @@
+"""Command-line interface of the port (diral_tpu/train/cli.py):
+
+    python -m diral_tpu_torch eval        <config.yaml> [--steps N] [--seed S]
+                                          [--num-envs B] [--device cuda|cpu]
+    python -m diral_tpu_torch compare-sps <config.yaml> [same options]
+
+Parameters come from ``drqn_init`` with the port's generator seeded by
+``--seed`` (the JAX verbs' behaviour without ``--checkpoint``); the
+rollout itself is seeded 1, as in the JAX verbs.  Runs on the CUDA device
+unless ``--device cpu``.  Other verbs come with later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import torch
+
+_DTYPE = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _load(args):
+    from diral_tpu_torch.config import load_config
+
+    cfg = load_config(args.config)
+    if args.num_envs:
+        cfg = dataclasses.replace(
+            cfg, engine=dataclasses.replace(cfg.engine,
+                                            num_envs=args.num_envs))
+    return cfg
+
+
+def _params(args, cfg, device):
+    from diral_tpu_torch.models.qnets import drqn_init
+
+    if args.checkpoint:
+        raise NotImplementedError(
+            "--checkpoint: reading checkpoints is not ported yet "
+            "(ROADMAP Queue 1 item 4, Checkpoint)")
+    gen = torch.Generator(device=device).manual_seed(args.seed or 0)
+    return drqn_init(gen, cfg.env.state_space, cfg.env.num_channels,
+                     cfg.agent, _DTYPE[cfg.engine.dtype], device)
+
+
+def cmd_eval(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.evaluate import evaluate_drqn
+
+    cfg = _load(args)
+    dev = resolve_device(args.device)
+    params = _params(args, cfg, dev)
+    print(json.dumps(evaluate_drqn(cfg, params, 1, steps=args.steps,
+                                   dtype=_DTYPE[cfg.engine.dtype],
+                                   device=dev)))
+
+
+def cmd_compare_sps(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.evaluate import compare_drqn_vs_sps
+
+    cfg = _load(args)
+    dev = resolve_device(args.device)
+    params = _params(args, cfg, dev)
+    print(json.dumps(compare_drqn_vs_sps(cfg, params, 1, steps=args.steps,
+                                         dtype=_DTYPE[cfg.engine.dtype],
+                                         device=dev)))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="diral_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    for name, fn, help_ in (
+            ("eval", cmd_eval, "greedy evaluation of a DRQN"),
+            ("compare-sps", cmd_compare_sps, "DIRAL vs SPS PRR comparison")):
+        sp = sub.add_parser(name, help=help_)
+        sp.add_argument("config")
+        sp.add_argument("--seed", type=int, default=None)
+        sp.add_argument("--num-envs", type=int, default=None)
+        sp.add_argument("--steps", type=int, default=500)
+        sp.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+        sp.add_argument("--checkpoint", default=None,
+                        help="not supported yet (ROADMAP Queue 1 item 4)")
+        sp.set_defaults(fn=fn)
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

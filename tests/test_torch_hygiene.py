@@ -1,0 +1,197 @@
+"""Package rules of the PyTorch port.
+
+* Import hygiene: importing diral_tpu_torch and every submodule loads no
+  JAX-family module and no module of diral_tpu; chip_smoke.py imports
+  neither.
+* Device default: entry points run on CUDA unless asked for the CPU, and
+  raise without a GPU; a kernel wrapper given a non-CPU tensor it cannot
+  launch on raises and never runs its plain version.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from diral_tpu_torch.config import load_config
+from diral_tpu_torch.ops import _build
+from diral_tpu_torch.ops import channel_phase as K5
+from diral_tpu_torch.ops import lstm_window as K1
+from diral_tpu_torch.ops import piggy_hist as K6
+from diral_tpu_torch.train import evaluate
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN or top == "diral_tpu"
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import pkgutil, importlib, sys, json\n"
+        "import diral_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "diral_tpu_torch.__path__, 'diral_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(json.dumps({'modules': names, 'loaded': sorted(sys.modules)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "diral_tpu_torch.envs.v2v_env" in res["modules"]
+    assert "diral_tpu_torch.train.cli" in res["modules"]
+    bad = [m for m in res["loaded"] if _forbidden(m)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", [
+    "chip_smoke.py",
+    *sorted(os.path.relpath(os.path.join(d, f), ROOT)
+            for d, _, fs in os.walk(os.path.join(ROOT, "diral_tpu_torch"))
+            for f in fs if f.endswith(".py"))])
+def test_sources_import_no_jax(path):
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a CUDA device the chip check exits non-zero and prints no
+    result; alone in an empty directory it fails too."""
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_entry_points_default_to_cuda():
+    cfg = load_config(os.path.join(ROOT, "configs", "toy_4ue_3r.yaml"))
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without a GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.evaluate_drqn(cfg, None, 0, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.evaluate_sps(cfg, 0, steps=1)
+    out = subprocess.run(
+        [sys.executable, "-m", "diral_tpu_torch", "eval",
+         "configs/toy_4ue_3r.yaml", "--steps", "1"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_cli_on_cpu_and_checkpoint_refused():
+    out = subprocess.run(
+        [sys.executable, "-m", "diral_tpu_torch", "compare-sps",
+         "configs/toy_4ue_3r.yaml", "--steps", "3", "--num-envs", "2",
+         "--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res) == {"drqn", "sps", "prr_improvement"}
+    assert 0.0 <= res["drqn"]["mean_prr"] <= 1.0
+    out = subprocess.run(
+        [sys.executable, "-m", "diral_tpu_torch", "eval",
+         "configs/toy_4ue_3r.yaml", "--device", "cpu", "--checkpoint", "x"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "Queue 1 item 4, Checkpoint" in out.stderr
+
+
+def _refuse(*_a, **_k):
+    raise AssertionError("the plain version ran for a non-CPU tensor")
+
+
+def test_wrappers_never_fall_back(monkeypatch):
+    """Tensors that are not on the CPU go to the kernel path, which raises
+    here; the plain versions are never reached."""
+    monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
+    monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
+    monkeypatch.setattr(K1, "lstm_last_flat_plain", _refuse)
+    meta = dict(device="meta")
+    b, n = 2, 8
+    with pytest.raises(ValueError, match="device"):
+        K5.channel_phase(*(torch.empty(b, n, **meta) for _ in range(2)),
+                         torch.empty(b, n, dtype=torch.int32, **meta),
+                         *(torch.empty(b, n, n, **meta) for _ in range(5)),
+                         0, 3, 250.0, 2, True)
+    with pytest.raises(ValueError, match="device"):
+        K6.piggy_histogram(*(torch.empty(b, n, n, **meta) for _ in range(2)),
+                           *(torch.empty(b, n, **meta) for _ in range(2)),
+                           torch.empty(b, n, n, dtype=torch.int32, **meta),
+                           500.0, 20)
+    with pytest.raises(ValueError, match="device"):
+        K1.lstm_last_flat(torch.empty(4, 6 * 32, **meta),
+                          torch.empty(23 + 128, 512, **meta),
+                          torch.empty(512, **meta), 6)
+    assert K5.channel_phase.launches == K6.piggy_histogram.launches == 0
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so a wrapper takes its
+    kernel branch on a machine without a GPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def _cuda(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype).as_subclass(_FakeCuda)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K6"])
+def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, kernel):
+    """A CUDA tensor handed to a wrapper where the kernel library cannot be
+    built raises (naming nvcc) and never runs the plain version."""
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
+    monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
+    monkeypatch.setattr(K1, "lstm_last_flat_plain", _refuse)
+    b, n, i32 = 2, 8, torch.int32
+    wrapper, call = {
+        "K1": (K1.lstm_last_flat, lambda: K1.lstm_last_flat(
+            _cuda(4, 6 * 32), _cuda(23 + 128, 512), _cuda(512), 6)),
+        "K5": (K5.channel_phase, lambda: K5.channel_phase(
+            _cuda(b, n), _cuda(b, n), _cuda(b, n, dtype=i32),
+            _cuda(b, n, n), _cuda(b, n, n), *(_cuda(b, n, n, dtype=i32)
+                                              for _ in range(3)),
+            0, 3, 250.0, 2, True)),
+        "K6": (K6.piggy_histogram, lambda: K6.piggy_histogram(
+            _cuda(b, n, n), _cuda(b, n, n), _cuda(b, n), _cuda(b, n),
+            _cuda(b, n, n, dtype=i32), 500.0, 20)),
+    }[kernel]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call()
+    assert wrapper.launches == before
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without the CUDA toolkit a kernel library cannot be had: the build
+    raises, naming nvcc."""
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library("lstm_window")
+    assert sorted(_build.sources()) == ["channel_phase", "lstm_window",
+                                        "piggy_hist"]
