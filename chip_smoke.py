@@ -9,20 +9,36 @@ failure exits non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of diral_tpu_torch/csrc from the checkout, in
    parallel, and print the build time;
-3. kernel phases: each kernel against its plain PyTorch version on the
-   card, at the shapes of the 100v/50r serving path, inputs from a numpy
-   seed -- K1 LSTM window (max |dh| <= 1e-4), K5 channel walk (bit-exact),
-   K6 piggy histogram (bit-exact); kernel / plain / library times (CUDA
-   events, median of 7 after warm-up);
+3. kernel phases: each serving kernel against its plain PyTorch version
+   on the card, at the shapes of the 100v/50r serving path, inputs from a
+   numpy seed -- K1 LSTM window (max |dh| <= 1e-4), K5 channel walk
+   (bit-exact), K6 piggy histogram (bit-exact); kernel / plain / library
+   times (CUDA events, median of 7 after warm-up);
 4. reference phase: a small env (N = 40) stepped through the kernels on the
    card and through the plain versions on the CPU, same actions: tables,
    observations, rewards and state vectors bit-equal, Q-values within
    1e-3;
-5. slice phase: ``compare_drqn_vs_sps`` on configs/scale_100v_50r.yaml
+5. serving slice: ``compare_drqn_vs_sps`` on configs/scale_100v_50r.yaml
    (16 envs, float32) with every launch counter set to 0 just before and
    read just after (each kernel must have launched at least once per
    step), then ``evaluate_drqn`` on the toy config at 256 envs (K1 only);
-6. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
+6. training kernels at the toy (2048 rows, D = 23) and 100v/50r (25,600
+   rows, D = 100) train-event shapes, float32 and bfloat16 windows: K2 and
+   K4 bit-equal to K1; K2, K4 within 1e-4 of their plain versions (plus
+   one bf16 step for bf16 outputs); K3 within 1e-3 of the largest plain
+   value for dWx, dWh, db and dx (plus one bf16 step for a bf16 dx), with
+   ``need_dx`` on and off giving bit-equal dW and db; times against the
+   bound, the plain version and cuDNN's LSTM;
+7. learner phase (toy shape): ``train_on_windows`` (K2 + K3) and
+   ``train_on_packed`` (K1 + K3 with dx, K4) on one sampled row batch give
+   the same loss and step; the card's gradients match the CPU's plain
+   versions within 1e-3 of the largest;
+8. training slice: ``train_experiment`` on the toy config (1500 slots) and
+   on the 100v/50r config (400 slots, 16 envs) with launch counters set to
+   0 just before and read just after, a finite loss, slots/s and ms per
+   train event; the ``train`` verb once through the CLI;
+9. a torch.profiler pass over toy and 100v/50r train events;
+10. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It imports nothing of JAX nor of the JAX package.
 """
@@ -57,35 +73,241 @@ def bound(flops, nbytes, peak):
                 flops=flops, bytes=nbytes)
 
 
+def device_profile(torch, fn, per):
+    """torch.profiler over ``fn()``: (wall ms, [(kernel, device ms, count)],
+    busy device ms), each divided by ``per`` (slots or events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / per,
+             e.count / per) for e in prof.key_averages()
+            if e.device_type == cuda]
+    return wall_ms, rows, sum(ms for _, ms, _ in rows)
+
+
+def log_profile(title, unit, wall_ms, rows, busy, top):
+    log(f"{title}: wall {wall_ms:.3f} ms/{unit}, device busy {busy:.3f} "
+        f"ms/{unit} ({100 * busy / wall_ms:.1f}% of wall), "
+        f"{sum(c for *_, c in rows):.0f} kernels/{unit}")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"  {100 * ms / max(busy, 1e-9):5.1f}%  {ms:8.4f} ms/{unit}"
+            f"  x{count:.0f}  {key[:90]}")
+
+
 def profile_slots(torch, evaluate, cfg, params, dev, steps=30):
     """Where a greedy slot's time goes: torch.profiler over ``steps`` slots
     of evaluate_drqn; device time by kernel, and the device's busy share
     of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     evaluate.evaluate_drqn(cfg, params, 5, steps=3, device=dev)  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        evaluate.evaluate_drqn(cfg, params, 5, steps=steps, device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == cuda]
-    busy = sum(ms for _, ms, _ in rows)
-    log(f"profile greedy DRQN 100v/50r, {steps} slots: wall "
-        f"{wall_ms / steps:.3f} ms/slot, device busy {busy / steps:.3f} "
-        f"ms/slot ({100 * busy / wall_ms:.1f}% of wall), "
-        f"{sum(c for *_, c in rows) / steps:.0f} kernels/slot")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
-        log(f"  {100 * ms / max(busy, 1e-9):5.1f}%  {ms / steps:8.4f} ms/slot"
-            f"  x{count / steps:.0f}  {key[:90]}")
+    wall_ms, rows, busy = device_profile(
+        torch, lambda: evaluate.evaluate_drqn(cfg, params, 5, steps=steps,
+                                              device=dev), steps)
+    log_profile(f"profile greedy DRQN 100v/50r, {steps} slots", "slot",
+                wall_ms, rows, busy, 8)
     ours = {k: sum(ms for key, ms, _ in rows if k in key)
             for k in ("lstm_window", "channel_phase", "piggy_hist")}
     log("  kernels of the port: " + ", ".join(
         f"{k} {100 * v / max(busy, 1e-9):.1f}%" for k, v in ours.items()))
+
+
+def cudnn_lstm(torch, w, b, D, H, dev):
+    """cuDNN's float32 LSTM holding the cell's weights: gate order (i, g, f,
+    o -> i, f, g, o) and the +1 forget bias folded into the bias."""
+    lstm = torch.nn.LSTM(D, H, batch_first=True).to(dev)
+    perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
+                      torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)]).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w[:D].t()[perm])
+        lstm.weight_hh_l0.copy_(w[D:].t()[perm])
+        lstm.bias_ih_l0.copy_(b[perm] + torch.cat(
+            [torch.zeros(H, device=dev), torch.ones(H, device=dev),
+             torch.zeros(2 * H, device=dev)]))
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def bf16_ulp(torch, v):
+    """One bf16 step at the magnitude of ``v``."""
+    return torch.ldexp(torch.ones_like(v),
+                       torch.floor(torch.log2(v.abs().clamp(min=1e-30)))
+                       .int() - 7)
+
+
+def lstm_train_inputs(torch, np, K1, dev, B, D, H, steps, seed, dtype):
+    """Online and target LSTM weights, a flat window of ``steps`` steps
+    and a cotangent of h, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    lim = math.sqrt(6.0 / (D + H + 4 * H))
+
+    def net():
+        return (torch.from_numpy(rng.uniform(-lim, lim, (D + H, 4 * H))
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rng.normal(0, 0.1, 4 * H)
+                                 .astype(np.float32)).to(dev))
+
+    (w, b), (wt, bt) = net(), net()
+    x = rng.normal(size=(B, steps, D)).astype(np.float32)
+    x2 = K1.flatten_window(torch.from_numpy(x)).to(dev, dtype).contiguous()
+    g = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(
+        dev, dtype)
+    return x2, w, b, wt, bt, g
+
+
+def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
+    """Phase 6: K2, K3 and K4 against K1 and their plain versions; returns
+    the kernel rows (times at the 100v/50r train-event shape)."""
+    T, H = 6, 256
+    rows = {}
+    for label, B, D, dtype in (
+            ("toy f32", 2048, 23, torch.float32),
+            ("toy bf16", 2048, 23, torch.bfloat16),
+            ("scale f32", 25600, 100, torch.float32),
+            ("scale bf16", 25600, 100, torch.bfloat16)):
+        Dp = K1.padded_dim(D)
+        x2c, w, b, wt, bt, g = lstm_train_inputs(torch, np, K1, dev, B, D, H,
+                                                 T + 1, 7, dtype)
+        x2, xn = x2c[:, :T * Dp], x2c[:, Dp:]
+        hs, hna, hnb = K1.lstm_last_flat_triple(x2c, w, b, wt, bt, T)
+        ha, hb = K1.lstm_last_flat_dual(xn, w, b, wt, bt, T)
+        singles = (K1.lstm_last_flat(x2, w, b, T),
+                   K1.lstm_last_flat(xn, w, b, T),
+                   K1.lstm_last_flat(xn, wt, bt, T))
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in
+                   zip((hs, hna, hnb, ha, hb), singles + singles[1:]))
+        plain = (K1.lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T)
+                 + K1.lstm_last_flat_dual_plain(xn, w, b, wt, bt, T))
+        # the K1 class: sum order may flip the bf16 rounding of an
+        # intermediate h, which moves later steps by up to |w| * 2^-8 * |h|
+        # -- at 25,600 rows such a flip reaches past 1e-4 in float32 -- so
+        # each value may be 1e-4 plus one bf16 step of it apart (the K1
+        # phase's rule for bf16 windows), and the median gap must stay
+        # below 1e-6
+        err_h, ok_h = 0.0, True
+        for got, want in zip((hs, hna, hnb, ha, hb), plain):
+            got, want = got.float(), want.float()
+            gap = (got - want).abs()
+            err_h = max(err_h, float(gap.max()))
+            ok_h &= bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
+            ok_h &= float(gap.median()) < 1e-6
+
+        grads = {nd: K1.lstm_window_bwd(x2, w, b, g, T, nd)
+                 for nd in (True, False)}
+        pdx, pdw, pdb = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
+        torch.cuda.synchronize()
+        dx, dw, db = grads[True]
+        rel, ok_g, abs_g = {}, True, 0.0
+        for name, got, want in (("dWx", dw[:D], pdw[:D]),
+                                ("dWh", dw[D:], pdw[D:]), ("db", db, pdb),
+                                ("dx", dx, pdx)):
+            got, want = got.float(), want.float()
+            gap = (got - want).abs()
+            scale = float(want.abs().max())
+            rel[name] = float(gap.max()) / scale
+            abs_g = max(abs_g, float(gap.max()))
+            allow = 1e-3 * scale
+            if name == "dx" and dtype == torch.bfloat16:
+                # dx is stored in bf16: the two roundings may land one
+                # bf16 step apart
+                allow = allow + bf16_ulp(torch, want)
+            ok_g &= bool((gap <= allow).all())
+        modes = (torch.equal(grads[True][1], grads[False][1])
+                 and torch.equal(grads[True][2], grads[False][2]))
+        log(f"train kernels {label}: B={B} T={T} D={D} H={H}; K2/K4 vs K1 "
+            f"{'bit-equal' if same else 'FAIL'}; K2/K4 vs plain max|dh|="
+            f"{err_h:.3e} {'ok' if ok_h else 'FAIL'}; K3 vs plain rel "
+            + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
+            + f" {'ok' if ok_g else 'FAIL'}; need_dx on/off dW, db "
+            f"{'bit-equal' if modes else 'FAIL'}")
+        for bad, what in ((not same, "bit-equal to K1"),
+                          (not ok_h, "vs plain"), (not ok_g, "K3 vs plain"),
+                          (not modes, "K3 need_dx modes")):
+            if bad:
+                failures.append(f"train kernels {label}: {what}")
+        if dtype != torch.float32:
+            continue
+
+        # times, float32 windows
+        xs3 = K1.unflatten_window(x2, T, D).contiguous()
+        xn3 = K1.unflatten_window(xn, T, D).contiguous()
+        lstm, lstm_t = (cudnn_lstm(torch, w, b, D, H, dev),
+                        cudnn_lstm(torch, wt, bt, D, H, dev))
+        lib_params = [p.requires_grad_() for p in lstm.parameters()]
+        with torch.no_grad():
+            lib2 = cuda_ms(lambda: (lstm(xs3), lstm(xn3), lstm_t(xn3)))
+            lib4 = cuda_ms(lambda: (lstm(xn3), lstm_t(xn3)))
+        lib3 = cuda_ms(lambda: torch.autograd.grad(
+            lstm(xs3)[0][:, -1], lib_params, grad_outputs=g.float()))
+        t2 = cuda_ms(lambda: K1.lstm_last_flat_triple(x2c, w, b, wt, bt, T))
+        p2 = cuda_ms(lambda: K1.lstm_last_flat_triple_plain(x2c, w, b, wt,
+                                                            bt, T))
+        t4 = cuda_ms(lambda: K1.lstm_last_flat_dual(xn, w, b, wt, bt, T))
+        p4 = cuda_ms(lambda: K1.lstm_last_flat_dual_plain(xn, w, b, wt, bt,
+                                                          T))
+        t3 = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, False))
+        t3dx = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, True))
+        p3 = cuda_ms(lambda: K1.lstm_window_bwd_plain(x2, w, b, g, T, False))
+        G4 = 4 * H
+        wbytes = 4 * (w.numel() + b.numel())
+        f2 = 2.0 * B * G4 * ((T + 1) * D + 2 * T * H + T * (D + H))
+        f3 = 2.0 * B * G4 * (2 * T * (D + H) + T * H)
+        f4 = 2.0 * 2 * B * T * (D + H) * G4
+        b2 = 4 * x2c.numel() + 2 * wbytes + 3 * 4 * B * H
+        b3 = 4 * (B * T * Dp + B * H) + wbytes + 4 * ((D + H) * G4 + G4)
+        b4 = 4 * B * T * Dp + 2 * wbytes + 2 * 4 * B * H
+        log(f"train kernels {label} times: K2 {t2:.4f} ms (plain {p2:.4f}, "
+            f"3 cuDNN forwards {lib2:.4f}); K4 {t4:.4f} ms (plain {p4:.4f}, "
+            f"2 cuDNN forwards {lib4:.4f}); K3 {t3:.4f} ms, with dx "
+            f"{t3dx:.4f} (plain {p3:.4f}, cuDNN forward + grad {lib3:.4f})")
+        if label != "scale f32":
+            continue
+        common = dict(route="cuda", source="diral_tpu_torch/csrc/lstm_window.cu")
+        rows["K2"] = dict(
+            name="K2 lstm_triple (train-step triple forward)", **common,
+            replaces="diral_tpu/ops/pallas_lstm.py:322", max_abs_err=err_h,
+            ms=t2, plain_ms=p2, library_ms=lib2, **bound(f2, b2, BF16_PEAK))
+        rows["K3"] = dict(
+            name="K3 lstm_bwd (recompute backward, need_dx=False; 2 launches)",
+            **common, replaces="diral_tpu/ops/pallas_lstm.py:106",
+            max_abs_err=abs_g, max_rel_err=max(rel.values()), ms=t3,
+            ms_need_dx=t3dx, plain_ms=p3, library_ms=lib3,
+            **bound(f3, b3, BF16_PEAK))
+        rows["K4"] = dict(
+            name="K4 lstm_dual (online + target forward)", **common,
+            replaces="diral_tpu/ops/pallas_lstm.py:255", max_abs_err=err_h,
+            ms=t4, plain_ms=p4, library_ms=lib4, **bound(f4, b4, BF16_PEAK))
+    return rows
+
+
+def clone_learner(torch, drqn, qnets, learner, acfg, device):
+    """An independent learner with the same online and target weights and
+    a fresh Adam state, on ``device``."""
+    def tree(net):
+        return {g: {k: v.detach().to(device).clone() for k, v in l.items()}
+                for g, l in net.tree().items()}
+    out = drqn.init_learner(qnets.DRQN(tree(learner.params), acfg), acfg)
+    out.target_params.load_state_dict(
+        {f"{g}.{k}": v for g, l in tree(learner.target_params).items()
+         for k, v in l.items()})
+    return out
+
+
+def profile_train_events(torch, label, fns, carry, t, draws, reps):
+    """torch.profiler over ``reps`` train events: device time by kernel and
+    the device's busy share of the wall time."""
+    def events():
+        for _ in range(reps):
+            fns.train_call(carry.learner, carry.replay, t, draws)
+
+    log_profile(f"profile {label} train event", "event",
+                *device_profile(torch, events, reps), 10)
 
 
 def main() -> int:
@@ -161,11 +383,6 @@ def main() -> int:
         x2 = K1.flatten_window(torch.from_numpy(x)).to(dev, dtype).contiguous()
         return x2, torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev), T
 
-    def bf16_ulp(v):
-        return torch.ldexp(torch.ones_like(v),
-                           torch.floor(torch.log2(v.abs().clamp(min=1e-30)))
-                           .int() - 7)
-
     errs = {}
     for label, B, D, H, dtype in (("scale f32", 1600, 100, 256, torch.float32),
                                   ("scale bf16", 1600, 100, 256, torch.bfloat16),
@@ -178,7 +395,8 @@ def main() -> int:
         if dtype == torch.bfloat16:
             # both round h to bf16 at the end: two float32 values 1e-4 apart
             # may land one bf16 step apart
-            ok = bool(((got - want).abs() <= 1e-4 + bf16_ulp(want)).all())
+            ok = bool(((got - want).abs() <= 1e-4 + bf16_ulp(torch, want))
+                      .all())
         else:
             ok = err <= 1e-4
         log(f"K1 {label}: B={B} T={T} D={D} H={H} max|dh|={err:.3e} "
@@ -196,16 +414,8 @@ def main() -> int:
     f32_loop_ms = cuda_ms(lambda: lstm_scan({"w": w, "b": b}, x3))
     # library yardstick: cuDNN's LSTM (float32, TF32 off) with the cell's
     # gate order (i, g, f, o -> i, f, g, o) and +1 forget bias folded in
-    lstm = torch.nn.LSTM(D, H, batch_first=True).to(dev)
-    perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
-                      torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)]).to(dev)
+    lstm = cudnn_lstm(torch, w, b, D, H, dev)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(w[:D].t()[perm])
-        lstm.weight_hh_l0.copy_(w[D:].t()[perm])
-        lstm.bias_ih_l0.copy_(b[perm] + torch.cat(
-            [torch.zeros(H, device=dev), torch.ones(H, device=dev),
-             torch.zeros(2 * H, device=dev)]))
-        lstm.bias_hh_l0.zero_()
         cudnn_gap = float((lstm(x3)[0][:, -1]
                            - lstm_scan({"w": w, "b": b}, x3)[1][:, -1])
                           .abs().max())
@@ -372,7 +582,7 @@ def main() -> int:
     t_cmp = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
     for k, n in launches.items():
-        rows[k]["launches"] = n
+        rows[k]["launches_by_path"] = {"serve 100v/50r (300 x 2 slots)": n}
     log(f"slice compare-sps 100v/50r: {STEPS} steps x 2 policies in "
         f"{t_cmp:.2f} s; launches {launches}")
     log(json.dumps(res))
@@ -414,18 +624,178 @@ def main() -> int:
     if k1_toy < STEPS + 20 or not all(math.isfinite(v) for v in tres.values()):
         failures.append("toy slice")
 
-    # 6. results
+    # 6. training kernels K2, K3, K4
+    rows.update(train_kernel_phase(torch, np, K1, dev, cuda_ms, bound,
+                                   failures))
+
+    from diral_tpu_torch.agents import drqn
+    from diral_tpu_torch.train import loop, runner
+
+    train_wrappers = {"K1": K1.lstm_last_flat,
+                      "K2": K1.lstm_last_flat_triple,
+                      "K3": K1.lstm_window_bwd, "K4": K1.lstm_last_flat_dual,
+                      "K5": K5.channel_phase, "K6": K6.piggy_histogram}
+
+    def zero_counts():
+        for fn in train_wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def read_counts(path):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in train_wrappers.items()}
+        for k, n in got.items():
+            if n:
+                rows[k].setdefault("launches_by_path", {})[path] = n
+        return got
+
+    # 7. learner phase, toy shape: 4 envs so that the pretrain ring holds
+    # more valid windows (4 x 174) than one batch draws (512)
+    toy1 = load_config(os.path.join(here, "configs", "toy_4ue_3r.yaml"))
+    lcfg = dataclasses.replace(
+        toy1, engine=dataclasses.replace(toy1.engine, num_envs=4),
+        agent=dataclasses.replace(toy1.agent, network=dataclasses.replace(
+            toy1.agent.network, lstm_impl="pallas")))
+    acfg = lcfg.agent
+    fns = loop.make_train_functions(lcfg, device=dev)
+    draws = loop.Draws(torch.Generator(device=dev).manual_seed(11))
+    carry = fns.init_carry(draws)
+    with torch.no_grad():   # a target net that differs from the online one
+        for p in carry.learner.target_params.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=draws.gen,
+                                      device=dev))
+    scores = draws.sampler_scores(0, 1, fns.B * carry.replay.capacity)
+    rw = loop.sample_window_rows_many(carry.replay, scores, acfg.batch_size,
+                                      fns.T, windows_only=True)
+    rs = loop.sample_window_rows_many(carry.replay, scores, acfg.batch_size,
+                                      fns.T)
+    la = carry.learner
+    lb = clone_learner(torch, drqn, qnets, la, acfg, dev)
+    lg = clone_learner(torch, drqn, qnets, la, acfg, dev)
+    lc = clone_learner(torch, drqn, qnets, la, acfg, "cpu")
+    zero_counts()
+    loss_w = float(drqn.train_on_windows(la, rw["windows"][0],
+                                         rw["actions"][0], rw["rewards"][0],
+                                         acfg))
+    loss_p = float(drqn.train_on_packed(lb, rs["states"][0], rs["actions"][0],
+                                        rs["rewards"][0],
+                                        rs["next_states"][0], acfg))
+    lcounts = read_counts("learner phase (1 + 1 steps)")
+    lstm_grad = float(lb.params.lstm.w.grad.abs().max())
+    same_loss = abs(loss_w - loss_p) <= 1e-6 * abs(loss_p) + 1e-7
+    same_step = all(torch.allclose(p, q, rtol=1e-5, atol=1e-6)
+                    for p, q in zip(la.params.parameters(),
+                                    lb.params.parameters()))
+    grads = []
+    for lrn, dv in ((lg, dev), (lc, "cpu")):
+        batch = [rw[k][0].to(dv) for k in ("windows", "actions", "rewards")]
+        loss = drqn.windows_loss(lrn, *batch, acfg)
+        grads.append(torch.autograd.grad(loss, list(lrn.params.parameters())))
+    grad_rel = max(float((gg.cpu() - gc).abs().max())
+                   / max(float(gc.abs().max()), 1e-30)
+                   for gg, gc in zip(*grads))
+    ok_l = (same_loss and same_step and grad_rel <= 1e-3 and lstm_grad > 0
+            and all(lcounts[k] >= 1 for k in ("K1", "K2", "K4"))
+            and lcounts["K3"] >= 2)
+    log(f"learner (toy, {acfg.batch_size * 4} rows): loss windows "
+        f"{loss_w:.9g} packed {loss_p:.9g}; params after one step "
+        f"{'agree' if same_step else 'DIFFER'}; max|dL/dW_lstm| {lstm_grad:.3e};"
+        f" card vs CPU plain gradients max rel {grad_rel:.2e}; launches "
+        f"{lcounts}; {'ok' if ok_l else 'FAIL'}")
+    if not ok_l:
+        failures.append("learner phase")
+
+    # 8. training slice: toy (full width, 1500 slots) and 100v/50r
+    def event_ms(cfg_run, carry, reps):
+        fns = loop.make_train_functions(cfg_run, device=dev)
+        d = loop.Draws(torch.Generator(device=dev).manual_seed(5))
+        t_last = cfg_run.time_slots - 1
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns.train_call(carry.learner, carry.replay, t_last, d)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:]), fns, d
+
+    import tempfile
+
+    def train_run(cfg_run, label, need):
+        with tempfile.TemporaryDirectory() as wd:
+            zero_counts()
+            t0 = time.perf_counter()
+            carry, out = runner.train_experiment(cfg_run, wd, device=dev,
+                                                 verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(label)
+        losses = out["loss"][out["loss"] != 0]
+        ok = (np.isfinite(out["loss"]).all() and losses.size > 0
+              and all(counts[k] >= n for k, n in need.items()))
+        log(f"train {label}: {cfg_run.time_slots} slots in {wall:.2f} s "
+            f"({cfg_run.time_slots / wall:.1f} slots/s incl. warmup, pretrain "
+            f"and {losses.size} train events); last loss "
+            f"{losses[-1] if losses.size else float('nan'):.6g}; "
+            f"mean sum reward (env 0) {out['sum_reward'][:, 0].mean():.4f}; "
+            f"launches {counts} (need {need}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train {label}")
+        return carry
+
+    toy_run = dataclasses.replace(toy1, time_slots=1500)
+    tcarry = train_run(toy_run, "toy 4v/3r (1500 slots)",
+                       {"K1": 1500, "K2": 80, "K3": 80})
+    toy_ev, tfns, tdraws = event_ms(toy_run, tcarry, 5)
+    log(f"toy train event (n_batch {toy_run.agent.n_batch} x "
+        f"{toy_run.agent.batch_size * 4} rows): {toy_ev:.3f} ms")
+    with tempfile.TemporaryDirectory() as wd:
+        cli = subprocess.run(
+            [sys.executable, "-m", "diral_tpu_torch", "train",
+             os.path.join(here, "configs", "toy_4ue_3r.yaml"), "--slots",
+             "600", "--workdir", wd], cwd=here, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=here))
+        res_dir = os.path.join(wd, "save_results", "test", "toy_4ue_3r")
+        files = sorted(os.listdir(res_dir)) if os.path.isdir(res_dir) else []
+    ok_cli = cli.returncode == 0 and {"rewards_sim0.npy",
+                                      "actions_sim0.npy"} <= set(files)
+    log(f"CLI train toy --slots 600: exit {cli.returncode}, files {files} "
+        f"{'ok' if ok_cli else 'FAIL: ' + cli.stderr[-2000:]}")
+    if not ok_cli:
+        failures.append("CLI train")
+
+    scale_run = dataclasses.replace(scale, time_slots=400)
+    scarry = train_run(scale_run, "100v/50r x 16 envs (400 slots)",
+                       {"K1": 400, "K2": 12, "K3": 12, "K5": 580, "K6": 580})
+    scale_ev, sfns, sdraws = event_ms(scale_run, scarry, 3)
+    log(f"100v/50r train event (n_batch {scale_run.agent.n_batch} x "
+        f"{scale_run.agent.batch_size * 100} rows): {scale_ev:.3f} ms")
+    for k in ("K1", "K2", "K3", "K5", "K6"):
+        rows[k]["launches"] = rows[k].get("launches_by_path", {}).get(
+            "100v/50r x 16 envs (400 slots)", 0)
+    rows["K4"]["launches"] = lcounts["K4"]
+
+    # 9. where a train event's time goes
+    profile_train_events(torch, "toy", tfns, tcarry, toy_run.time_slots - 1,
+                         tdraws, 3)
+    profile_train_events(torch, "100v/50r", sfns, scarry,
+                         scale_run.time_slots - 1, sdraws, 2)
+
+    # 10. results
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: r.get(k) for k in order} | {
-        k: v for k, v in r.items() if k not in order} for r in rows.values()]
+    kernels = [{k: rows[i].get(k) for k in order} | {
+        k: v for k, v in rows[i].items() if k not in order}
+        for i in sorted(rows)]
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     log(json.dumps({"kernels": kernels}))
+    # the run uses one card, whatever the machine holds
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

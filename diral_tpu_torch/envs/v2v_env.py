@@ -18,9 +18,12 @@ next through the live tables (vehicle.py:61).
 
 Kernels (on a CUDA device, under the JAX package's gates):
 ``step_channel``'s channel walk -> ops/channel_phase.py (K5), the type-2
-positional distribution -> ops/piggy_hist.py (K6).  ``step_design``,
-``update_velocity``, ``information_age`` and ``state_generator`` come with
-the training slice.
+positional distribution -> ops/piggy_hist.py (K6).  ``state_generator``
+(the DQN-era state of the PS learners) comes with their slice.
+
+Random functions (``update_velocity``) take their draws as tensors; the
+draws themselves come from the caller's generator (``sample_actions``,
+``velocity_kicks``).
 
 Known deviations are the JAX package's (v2v_env.py:32-44): piggybacking
 observations are served in the repaired fixed width, and ``state_type 1``
@@ -45,6 +48,7 @@ from diral_tpu_torch.ops.histogram import (masked_count_histogram,
 from diral_tpu_torch.ops.piggy_hist import piggy_histogram
 
 STALENESS_CUTOFF = 20
+IA_HORIZON = 100
 PF_THRESHOLD = 10
 PF_PENALTY = -10.0
 
@@ -141,6 +145,13 @@ def reset_from(cfg: EnvConfig, pos_x, pos_y, vel, direction,
     return _blank_state(cfg, pos_x, pos_y, vel, direction, dtype, device)
 
 
+def sample_actions(cfg: EnvConfig, generator: torch.Generator,
+                   num_envs: int, device=None):
+    """Uniform random action per user (test_env.py:116-122). [B, N]."""
+    return torch.randint(0, cfg.num_channels, (num_envs, cfg.num_users),
+                         generator=generator, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Internal building blocks
 # ---------------------------------------------------------------------------
@@ -213,14 +224,35 @@ def _mod(x, m: float):
     return torch.where((r != 0) & ((r < 0) != (m < 0)), r + m, r)
 
 
-def _advance_mobility(cfg: EnvConfig, state: EnvState) -> EnvState:
-    """Modular x-advance (network.py:189-206).  Recorded-trace replay
-    (``load_positions``) comes with the training slice."""
+def _advance_mobility(cfg: EnvConfig, state: EnvState, t,
+                      trace=None) -> EnvState:
+    """Modular x-advance, or recorded-trace replay: ``trace`` [T_rec, N']
+    x positions, row t % T_rec for every env (network.py:189-206)."""
     if not cfg.mobility:
         return state
+    if trace is not None:
+        row = trace[t % trace.shape[0]][: cfg.num_users].to(state.pos_x)
+        return state.replace(pos_x=row.expand_as(state.pos_x).contiguous())
     L = float(cfg.highway_length)
     return state.replace(
         pos_x=_mod(state.pos_x + state.direction * state.vel + L, L))
+
+
+def velocity_kicks(generator: torch.Generator, shape, device=None):
+    """Draws for ``update_velocity``: ints uniform in {1, 2, 3}."""
+    return torch.randint(1, 4, shape, generator=generator, device=device)
+
+
+def update_velocity(cfg: EnvConfig, state: EnvState, kicks) -> EnvState:
+    """Per-episode velocity kicks: +-0.55 where ``kicks`` is 1 / 2 (each of
+    {1, 2, 3} with prob 1/3), clamped to [1.1, 2.77] (network.py:208-223);
+    active only under mobility_vary (test_env.py:498-504)."""
+    if not cfg.mobility_vary:
+        return state
+    vel = state.vel
+    new = torch.where(kicks == 1, torch.clamp(vel + 0.55, max=2.77), vel)
+    new = torch.where(kicks == 2, torch.clamp(vel - 0.55, min=1.1), new)
+    return state.replace(vel=new)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +260,7 @@ def _advance_mobility(cfg: EnvConfig, state: EnvState) -> EnvState:
 # ---------------------------------------------------------------------------
 
 
-def step_collision(cfg: EnvConfig, state: EnvState, actions, t):
+def step_collision(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
     """``my_step`` semantics (test_env.py:124-266): per-channel collision
     rewards shared among colliders, half-duplex observations, piggyback
     merges from the closest transmitter, then mobility.  ``actions``:
@@ -301,11 +333,62 @@ def step_collision(cfg: EnvConfig, state: EnvState, actions, t):
         state = state.replace(prev_obs=obs.to(state.prev_obs.dtype))
     else:
         obs_out = obs
-    state = _advance_mobility(cfg, state)
+    state = _advance_mobility(cfg, state, t, trace)
     return state, obs_out, rews
 
 
-def step_channel(cfg: EnvConfig, state: EnvState, actions, t):
+def step_design(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
+    """``my_step_design`` semantics (test_env.py:269-349): rewards scoped to
+    the transmitters within 2x communication range of each collider."""
+    st = cfg.state
+    n, c = cfg.num_users, cfg.num_channels
+    dtype, dev = state.pos_x.dtype, state.pos_x.device
+    b = state.pos_x.shape[0]
+    acts = F.one_hot(actions.long(), c)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)
+
+    if st.add_positional_dist_piggy:
+        state = _periodic_update(state)
+
+    D = pairwise_distances(state.pos_x, state.pos_y)
+    two_r = 2 * cfg.communication_range
+    R = cfg.communication_range
+    not_eye = ~_eye(n, dev)
+    la = state.last_arrival
+    rews = torch.zeros((b, n), dtype=dtype, device=dev)
+    obs = torch.zeros((b, n, c), dtype=dtype, device=dev)
+    for ch in range(c):
+        txm = acts[:, :, ch] == 1
+        tot = txm.sum(dim=1)
+        invoked = ~txm & (tot > 0)[:, None]
+
+        # comm_range_tx per transmitter u: itself + other transmitters
+        # within 2R (test_env.py:327-334)
+        near = txm[:, None, :] & (D < two_r) & not_eye       # [B, u, v]
+        cnt = 1 + near.sum(dim=2)
+        pair_d = torch.where(near, D, zero).sum(dim=2)
+        w2 = (pair_d > two_r).to(dtype)
+        cnt_f = cnt.to(dtype)
+        r_coll = torch.where(cnt == 1, one,
+                             torch.where(cnt == 2,
+                                         torch.where(w2 == 1.0, zero, -cnt_f),
+                                         -cnt_f))
+        r_tx = torch.where((tot == 1)[:, None], one, r_coll)
+        rews = torch.where(txm, r_tx, rews)
+        obs[:, :, ch] = torch.where(txm, zero, torch.where(invoked, one, zero))
+
+        _, cid, has = closest_tx(D, txm, R)
+        oor = txm[:, :, None] & invoked[:, None, :] & (D >= R)
+        la = torch.where(oor, torch.full_like(la, -1), la)
+        if st.add_positional_dist_piggy:
+            state = _merge_tables(state, invoked & has, cid)
+    state = state.replace(last_arrival=la)
+    state = _advance_mobility(cfg, state, t, trace)
+    return state, obs, rews
+
+
+def step_channel(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
     """``my_step_ch`` semantics (test_env.py:351-443): PRR-style reward --
     the fraction of in-range receivers whose nearest transmitter is you --
     through reward designs 2/3/4, plus packet-arrival bookkeeping.  The
@@ -330,7 +413,7 @@ def step_channel(cfg: EnvConfig, state: EnvState, actions, t):
             state.table_seq, state.table_age, state.last_arrival, t, *args)
     state = state.replace(table_x=tx, table_y=ty, table_seq=ts, table_age=ta,
                           last_arrival=la)
-    state = _advance_mobility(cfg, state)
+    state = _advance_mobility(cfg, state, t, trace)
     return state, obs, rews
 
 
@@ -485,3 +568,31 @@ def obtain_state(cfg: EnvConfig, state: EnvState, obs, actions, rewards,
              torch.full((b, n), float(epsilon), dtype=dtype, device=dev)],
             dim=-1))
     return torch.cat(parts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Information age
+# ---------------------------------------------------------------------------
+
+
+def information_age(state: EnvState, t: int):
+    """Histogram of packet ages over in-coverage (tx, rx) pairs
+    (network.py:560-574). [B, IA_HORIZON] int32."""
+    la = state.last_arrival
+    b, n = la.shape[0], la.shape[-1]
+    valid = (la != -1) & ~_eye(n, la.device)
+    ia = t - la
+    contributes = valid & (ia < IA_HORIZON) & (ia >= 0)
+    idx = torch.where(contributes, ia, IA_HORIZON).long().reshape(b, -1)
+    hist = torch.zeros((b, IA_HORIZON + 1), dtype=torch.int64,
+                       device=la.device)
+    hist.scatter_add_(1, idx, torch.ones_like(idx))
+    return hist[:, :IA_HORIZON].to(torch.int32)
+
+
+def ia_penalty(ia_hist):
+    """Weighted information-age sum (reference utils/misc.py:1-12), float32.
+    [..., IA] -> [...]."""
+    w = torch.arange(1, ia_hist.shape[-1] + 1, dtype=torch.float32,
+                     device=ia_hist.device)
+    return (ia_hist * w).sum(dim=-1)

@@ -10,7 +10,7 @@ Parameters live in an ``nn.Module`` whose names follow the JAX tree
 [in, out] weight layout, so a JAX parameter tree maps onto it name for
 name (convert.py).  The functions take the nested-dict view
 (``DRQN.tree()``), as the JAX ones take the pytree.  The PS-DQN /
-PS-DRQN nets and the triple/dual train forwards come with later slices.
+PS-DRQN nets come with later slices.
 """
 
 from __future__ import annotations
@@ -158,15 +158,94 @@ def _head_stack(params, h, cfg: AgentConfig, bf16: bool):
     return out.to(torch.float32) if bf16 else out
 
 
+def _tree(params):
+    return params.tree() if isinstance(params, DRQN) else params
+
+
 def drqn_apply(params, x, cfg: AgentConfig):
     """x: [B, T, D] or flat [B, T*Dp] window (LSTM path) or [B, D] (MLP
     path) -> Q [B, A].  ``params``: a DRQN module or its ``tree()``."""
-    if isinstance(params, DRQN):
-        params = params.tree()
-    params, x, bf16 = _maybe_bf16(params, x, cfg)
+    params, x, bf16 = _maybe_bf16(_tree(params), x, cfg)
     if cfg.network.use_lstm_input:
         h = _lstm_last(params["lstm"], x, cfg.network.lstm_impl,
                        cfg.step_size)
     else:
         h = _norm(params["ln1"], torch.relu(dense(params["fc1"], x)), bf16)
     return _head_stack(params, h, cfg, bf16)
+
+
+def _kernel_gate(cfg: AgentConfig, x, hidden: int) -> bool:
+    """The fused multi-net kernels' gate (qnets.py:217-225, 249-259): "auto"
+    on a CUDA device or "pallas" anywhere, when the compute dtype and the
+    hidden width are supported."""
+    impl = cfg.network.lstm_impl
+    dtype = (torch.bfloat16 if cfg.network.compute_dtype == "bfloat16"
+             else x.dtype)
+    return (impl in ("auto", "pallas")
+            and lstm_window.supported(dtype, hidden)
+            and (impl == "pallas" or x.device.type == "cuda"))
+
+
+def drqn_apply_triple(params, target_params, x2c, cfg: AgentConfig):
+    """(Q_s, Q_na, Q_nb) from ONE combined flat (T+1)-step window
+    [B, (T+1)*Dp] (the next_states window is the states window shifted one
+    step):
+
+      Q_s  -- online net on states (steps 0..T-1), differentiable;
+      Q_na -- online net on next_states (steps 1..T), no gradient;
+      Q_nb -- target net on next_states, no gradient.
+
+    Kernel path: K2 (ops/lstm_window.lstm_last_flat_triple), bit-identical
+    to the separate K1 and K4 forwards.  Otherwise lane slices +
+    drqn_apply / drqn_apply_dual.  Q_na and Q_nb are computed without a
+    graph on both paths: the Double-DQN target is never differentiated
+    (drl_drqn.py:267-292)."""
+    if not cfg.network.use_lstm_input or x2c.dim() != 2:
+        raise ValueError("drqn_apply_triple needs the LSTM net and a flat "
+                         "combined window")
+    params, target_params = _tree(params), _tree(target_params)
+    T = cfg.step_size
+    Dp = x2c.shape[1] // (T + 1)
+    hidden = params["lstm"]["w"].shape[1] // 4
+    # the combined window must ride the kernel's padded per-step stride; a
+    # wrong T or layout would otherwise slice misaligned lanes silently on
+    # the plain path (qnets.py:211-216)
+    want = lstm_window.padded_dim(params["lstm"]["w"].shape[0] - hidden)
+    if Dp != want or x2c.shape[1] != (T + 1) * Dp:
+        raise ValueError(f"combined window {tuple(x2c.shape)} does not ride "
+                         f"the stride Dp={want} over T+1={T + 1} steps")
+    if not _kernel_gate(cfg, x2c, hidden):
+        q_s = drqn_apply(params, x2c[:, :T * Dp], cfg)
+        with torch.no_grad():
+            q_na, q_nb = drqn_apply_dual(params, target_params, x2c[:, Dp:],
+                                         cfg)
+        return q_s, q_na, q_nb
+    pa, xc, bf16 = _maybe_bf16(params, x2c, cfg)
+    pb, _, _ = _maybe_bf16(target_params, x2c, cfg)
+    h_s, h_na, h_nb = lstm_window.lstm_last_flat_triple(
+        xc, pa["lstm"]["w"], pa["lstm"]["b"], pb["lstm"]["w"],
+        pb["lstm"]["b"], T)
+    q_s = _head_stack(pa, h_s, cfg, bf16)
+    with torch.no_grad():
+        return (q_s, _head_stack(pa, h_na, cfg, bf16),
+                _head_stack(pb, h_nb, cfg, bf16))
+
+
+def drqn_apply_dual(params_a, params_b, x, cfg: AgentConfig):
+    """(Q under params_a, Q under params_b) for the SAME input -- the
+    Double-DQN target's online + target forwards on next_states
+    (drl_drqn.py:267-292).  On the kernel path the two recurrences run in
+    one K4 launch (forward only, no gradient); otherwise two
+    ``drqn_apply`` calls."""
+    params_a, params_b = _tree(params_a), _tree(params_b)
+    use_dual = (cfg.network.use_lstm_input and x.dim() == 2
+                and _kernel_gate(cfg, x,
+                                 params_a["lstm"]["w"].shape[1] // 4))
+    if not use_dual:
+        return drqn_apply(params_a, x, cfg), drqn_apply(params_b, x, cfg)
+    pa, xa, bf16 = _maybe_bf16(params_a, x, cfg)
+    pb, _, _ = _maybe_bf16(params_b, x, cfg)
+    ha, hb = lstm_window.lstm_last_flat_dual(
+        xa, pa["lstm"]["w"], pa["lstm"]["b"], pb["lstm"]["w"],
+        pb["lstm"]["b"], cfg.step_size)
+    return _head_stack(pa, ha, cfg, bf16), _head_stack(pb, hb, cfg, bf16)

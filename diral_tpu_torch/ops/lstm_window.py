@@ -1,27 +1,35 @@
-"""K1: the DRQN Q-net's LSTM window forward (BasicLSTMCell over a short
-history window, only the last hidden state consumed; reference
-algorithms/drl_drqn.py:109-155) as a hand-written CUDA kernel and its
-plain PyTorch version.
+"""The DRQN Q-net's LSTM window kernels (BasicLSTMCell over a short history
+window, only the last hidden state consumed; reference
+algorithms/drl_drqn.py:109-155) as hand-written CUDA kernels, each beside
+its plain PyTorch version.  Sources: ``csrc/lstm_window.cu``.
+
+* K1 ``lstm_last_flat``: one LSTM over the window (pallas_lstm
+  ``_fwd_kernel``).
+* K4 ``lstm_last_flat_dual``: two LSTMs (online and target weights) over
+  the same window (``_fwd_dual_kernel``); forward only.
+* K2 ``lstm_last_flat_triple``: over a combined (T+1)-step window, the
+  online net on steps 0..T-1 (differentiable), the online and the target
+  net on steps 1..T (``_fwd_triple_kernel``).
+* K3 ``lstm_window_bwd``: the recompute-forward backward (``_bwd_kernel``):
+  (dx or None, dw, db) for a cotangent of the last hidden state.  K1's
+  and K2's ``torch.autograd.Function`` take it as their backward.
 
 Window layout, as in diral_tpu/ops/pallas_lstm.py: FLAT [B, T*Dp], each
 step's D features at lane offset t*Dp, ``Dp = round_up(D + 2, 16)``.
 Pad lanes meet zero rows of the padded input-weight matrix, so they are
-inert whatever they hold.
+inert whatever they hold, and their dx is zero.
 
-Numerics are the TPU kernel's precision class: x, Wx, Wh and h are
-rounded to bfloat16 before each product, products are summed in float32,
-gate math is float32.  The canonical full-precision path is
-models/recurrent.lstm_scan (the float64 CPU parity path).
+Numerics are the TPU kernels' precision class: x, Wx, Wh, h and (in the
+backward) dgates are rounded to bfloat16 before each product, products
+are summed in float32, gate math is float32; db sums the unrounded
+dgates.  The canonical full-precision path is models/recurrent.lstm_scan
+(the float64 CPU parity path).  bf16 x bf16 products are exact in
+float32, so a plain version differs from its kernel only in the order of
+sums (and last bits of exp/tanh).
 
-* ``lstm_last_flat_plain`` -- that arithmetic in PyTorch: operands
-  rounded to bf16, then float32 matmuls.  bf16 x bf16 products are exact
-  in float32, so it differs from the kernel only in the order of sums.
-* ``lstm_last_flat`` / ``lstm_last`` -- the wrappers: CPU tensors run the
-  plain version, CUDA tensors launch ``csrc/lstm_window.cu`` or raise.
-  ``lstm_last_flat.launches`` counts kernel launches.
-
-Forward only: the backward (TPU kernel ``_bwd_kernel``) comes with the
-training slice.
+Wrappers: CPU tensors run the plain version, CUDA tensors launch the
+kernel or raise.  Each wrapper's ``launches`` counts kernel launches (a K3
+call counts once, though it is two launches).
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from diral_tpu_torch.ops import _build
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,10 +67,16 @@ def unflatten_window(x2, T: int, D: int):
 
 
 def supported(x_dtype, hidden: int) -> bool:
-    """Shapes/dtypes the kernel serves (pallas_lstm.py:561-566): float32 or
+    """Shapes/dtypes the kernels serve (pallas_lstm.py:561-566): float32 or
     bfloat16 windows and H a multiple of 128.  Float64 -- the CPU parity
     suite -- takes the canonical lstm_scan."""
     return x_dtype in (torch.float32, torch.bfloat16) and hidden % 128 == 0
+
+
+def _dims(w):
+    H = w.shape[1] // 4
+    D = w.shape[0] - H
+    return D, H, padded_dim(D)
 
 
 def _split_weights(w, D: int, Dp: int):
@@ -70,71 +86,337 @@ def _split_weights(w, D: int, Dp: int):
 
 
 def _gate_math(c, gates, H: int):
+    """(c', h', (si, tg, sf, so)) of one BasicLSTMCell step."""
     i, g, f, o = gates.split(H, dim=-1)
     si = torch.sigmoid(i)
     tg = torch.tanh(g)
     sf = torch.sigmoid(f + 1.0)   # BasicLSTMCell forget bias
     so = torch.sigmoid(o)
     c = c * sf + si * tg
-    return c, torch.tanh(c) * so
+    return c, torch.tanh(c) * so, (si, tg, sf, so)
+
+
+def _bf(t):
+    """Round to bfloat16, compute in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _check_width(x2, width: int):
+    if x2.shape[1] != width:
+        raise ValueError(f"window width {x2.shape[1]} != {width}")
 
 
 def lstm_last_flat_plain(x2, w, b, T: int):
     """Plain PyTorch version of K1.  x2: [B, T*Dp]; w: [D+H, 4H]; b: [4H].
     Returns [B, H] in x2's dtype."""
     f32 = torch.float32
-    H = w.shape[1] // 4
-    D = w.shape[0] - H
-    Dp = padded_dim(D)
-    if x2.shape[1] != T * Dp:
-        raise ValueError(f"window width {x2.shape[1]} != T*Dp = {T * Dp}")
+    D, H, Dp = _dims(w)
+    _check_width(x2, T * Dp)
     wx, wh = (m.to(f32) for m in _split_weights(w, D, Dp))
     bias = b.to(f32)
     h = torch.zeros((x2.shape[0], H), dtype=f32, device=x2.device)
     c = torch.zeros_like(h)
     for t in range(T):
-        xt = x2[:, t * Dp:(t + 1) * Dp].to(torch.bfloat16).to(f32)
-        hb = h.to(torch.bfloat16).to(f32)
-        gates = xt @ wx + hb @ wh + bias
-        c, h = _gate_math(c, gates, H)
+        gates = _bf(x2[:, t * Dp:(t + 1) * Dp]) @ wx + _bf(h) @ wh + bias
+        c, h, _ = _gate_math(c, gates, H)
     return h.to(x2.dtype)
 
 
-def lstm_last_flat(x2, w, b, T: int):
-    """Fused LSTM over a FLAT padded window -> last hidden [B, H] in x2's
-    dtype.  x2: [B, T*Dp]; w: [D+H, 4H]; b: [4H]."""
-    if x2.device.type == "cpu":
-        return lstm_last_flat_plain(x2, w, b, T)
+def lstm_last_flat_dual_plain(x2, wa, ba, wb, bb, T: int):
+    """Plain PyTorch version of K4: two K1 forwards over the same window."""
+    return (lstm_last_flat_plain(x2, wa, ba, T),
+            lstm_last_flat_plain(x2, wb, bb, T))
+
+
+def lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T: int):
+    """Plain PyTorch version of K2.  x2c: [B, (T+1)*Dp].  Returns (h_s,
+    h_na, h_nb): the online net over steps 0..T-1, the online and the
+    target net over steps 1..T."""
+    _, _, Dp = _dims(w)
+    _check_width(x2c, (T + 1) * Dp)
+    h_s = lstm_last_flat_plain(x2c[:, :T * Dp], w, b, T)
+    h_na, h_nb = lstm_last_flat_dual_plain(x2c[:, Dp:], w, b, wt, bt, T)
+    return h_s, h_na, h_nb
+
+
+def lstm_window_bwd_plain(x2, w, b, g, T: int, need_dx: bool = True):
+    """Plain PyTorch version of K3, the arithmetic of pallas_lstm
+    ``_bwd_kernel``: recompute the forward (h_{t-1} rounded to bf16, c in
+    float32), then sweep back from the cotangent ``g`` [B, H] of the last
+    hidden state; dgates are rounded to bf16 before the dh, dx and dW
+    products, db sums them unrounded.  Returns (dx [B, T*Dp] in x2's dtype
+    or None, dw [D+H, 4H] in w's dtype, db [4H] in b's dtype)."""
+    f32 = torch.float32
+    D, H, Dp = _dims(w)
+    _check_width(x2, T * Dp)
+    wx, wh = (m.to(f32) for m in _split_weights(w, D, Dp))
+    bias = b.to(f32)
+    B, dev = x2.shape[0], x2.device
+    xs = [_bf(x2[:, t * Dp:(t + 1) * Dp]) for t in range(T)]
+    h = torch.zeros((B, H), dtype=f32, device=dev)
+    c = torch.zeros_like(h)
+    h_prev, cs, acts = [], [c], []
+    for t in range(T):
+        h_prev.append(_bf(h))
+        gates = xs[t] @ wx + h_prev[t] @ wh + bias
+        c, h, act = _gate_math(c, gates, H)
+        cs.append(c)
+        acts.append(act)
+    dh = g.to(f32)
+    dc = torch.zeros_like(dh)
+    dwx = torch.zeros((Dp, 4 * H), dtype=f32, device=dev)
+    dwh = torch.zeros((H, 4 * H), dtype=f32, device=dev)
+    db = torch.zeros(4 * H, dtype=f32, device=dev)
+    dx = (torch.zeros((B, T * Dp), dtype=x2.dtype, device=dev)
+          if need_dx else None)
+    for t in reversed(range(T)):
+        si, tg, sf, so = acts[t]
+        c_prev = cs[t]
+        tc = torch.tanh(cs[t + 1])
+        do_ = dh * tc
+        dao = do_ * so * (1.0 - so)
+        dct = dc + dh * so * (1.0 - tc * tc)
+        daf = dct * c_prev * sf * (1.0 - sf)
+        dai = dct * tg * si * (1.0 - si)
+        dag = dct * si * (1.0 - tg * tg)
+        dgates = torch.cat([dai, dag, daf, dao], dim=1)  # i, g, f, o
+        dc = dct * sf
+        dgb = _bf(dgates)
+        dh = dgb @ wh.T
+        if need_dx:
+            dx[:, t * Dp:(t + 1) * Dp] = (dgb @ wx.T).to(x2.dtype)
+        dwx += xs[t].T @ dgb
+        dwh += h_prev[t].T @ dgb
+        db += dgates.sum(dim=0)
+    dw = torch.cat([dwx[:D], dwh], dim=0).to(w.dtype)
+    return dx, dw, db.to(b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name, x2, steps: int, *params):
+    """Validate what a kernel takes: a CUDA window [B, steps*Dp] in float32
+    or bfloat16 whose rows are contiguous (any row stride), and (w, b)
+    pairs on its device with w [D+H, 4H], b [4H], H % 128 == 0, H <= 1024.
+    Returns (D, H, Dp)."""
     if x2.device.type != "cuda":
-        raise ValueError(f"lstm_last_flat: unsupported device {x2.device}")
-    H = w.shape[1] // 4
-    D = w.shape[0] - H
-    Dp = padded_dim(D)
-    B = x2.shape[0]
+        raise ValueError(f"{name}: unsupported device {x2.device}")
+    D, H, Dp = _dims(params[0])
+    width = steps * Dp
     if not supported(x2.dtype, H) or H > 1024:
-        raise ValueError(f"lstm_last_flat: unsupported dtype={x2.dtype}, "
-                         f"hidden={H} (float32/bfloat16, H % 128 == 0, "
-                         f"H <= 1024)")
-    if x2.dim() != 2 or x2.shape[1] != T * Dp or not x2.is_contiguous():
-        raise ValueError(f"lstm_last_flat: x2 must be a contiguous "
-                         f"[B, {T * Dp}] window, got {tuple(x2.shape)}")
-    if w.device != x2.device or b.device != x2.device:
-        raise ValueError("lstm_last_flat: w, b and x2 on different devices")
-    if tuple(b.shape) != (4 * H,):
-        raise ValueError(f"lstm_last_flat: bias shape {tuple(b.shape)}")
-    lib = _build.library("lstm_window")
-    wpk = torch.cat(_split_weights(w, D, Dp), dim=0).contiguous()
-    bias = b.to(torch.float32).contiguous()
-    out = torch.empty((B, H), dtype=x2.dtype, device=x2.device)
-    _build.launch(lib, "lstm_window_launch",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5, x2.device,
-                  x2, wpk, bias, out, B, T, Dp, H,
+        raise ValueError(f"{name}: unsupported dtype={x2.dtype}, hidden={H} "
+                         f"(float32/bfloat16, H % 128 == 0, H <= 1024)")
+    if x2.dim() != 2 or x2.shape[1] != width or x2.stride(1) != 1:
+        raise ValueError(f"{name}: x must be a [B, {width}] window with "
+                         f"contiguous rows, got {tuple(x2.shape)}")
+    for p in params:
+        if p.device != x2.device:
+            raise ValueError(f"{name}: weights and window on different "
+                             f"devices")
+    for wi, bi in zip(params[0::2], params[1::2]):
+        if tuple(wi.shape) != (D + H, 4 * H) or tuple(bi.shape) != (4 * H,):
+            raise ValueError(f"{name}: weight {tuple(wi.shape)} / bias "
+                             f"{tuple(bi.shape)} do not match [D+H, 4H]")
+    return D, H, Dp
+
+
+def _packed(w, D: int, Dp: int):
+    """The kernels' weight layout: [Wx padded to Dp rows; Wh] in bf16."""
+    return torch.cat(_split_weights(w, D, Dp), dim=0).contiguous()
+
+
+def _bias(b):
+    return b.to(torch.float32).contiguous()
+
+
+def _library():
+    """The kernels' library, built before anything is allocated on the
+    device, so a missing toolkit raises first."""
+    return _build.library("lstm_window")
+
+
+def _launch(lib, symbol, argtypes, x2, *args):
+    _build.launch(lib, symbol, argtypes + [_INT] * 5, x2.device, *args,
                   int(x2.dtype == torch.bfloat16))
+
+
+def _k1(x2, w, b, T: int):
+    D, H, Dp = _check_cuda("lstm_last_flat", x2, T, w, b)
+    lib = _library()
+    out = torch.empty((x2.shape[0], H), dtype=x2.dtype, device=x2.device)
+    _launch(lib, "lstm_window_launch", [_PTR, _INT, _PTR, _PTR, _PTR], x2,
+            x2, x2.stride(0), _packed(w, D, Dp), _bias(b), out,
+            x2.shape[0], T, Dp, H)
     lstm_last_flat.launches += 1
     return out
 
 
+def _k2(x2c, w, b, wt, bt, T: int):
+    D, H, Dp = _check_cuda("lstm_last_flat_triple", x2c, T + 1,
+                           w, b, wt, bt)
+    lib = _library()
+    outs = [torch.empty((x2c.shape[0], H), dtype=x2c.dtype,
+                        device=x2c.device) for _ in range(3)]
+    _launch(lib, "lstm_triple_launch", [_PTR, _INT] + [_PTR] * 7, x2c,
+            x2c, x2c.stride(0), _packed(w, D, Dp), _bias(b),
+            _packed(wt, D, Dp), _bias(bt), *outs, x2c.shape[0], T, Dp, H)
+    lstm_last_flat_triple.launches += 1
+    return tuple(outs)
+
+
+def _k3(x2, w, b, g, T: int, need_dx: bool):
+    D, H, Dp = _check_cuda("lstm_window_bwd", x2, T, w, b)
+    lib = _library()
+    B, dev = x2.shape[0], x2.device
+    g = g.to(x2.dtype).contiguous()
+    if tuple(g.shape) != (B, H):
+        raise ValueError(f"lstm_window_bwd: cotangent {tuple(g.shape)} != "
+                         f"{(B, H)}")
+    wx, wh = _split_weights(w, D, Dp)
+    wtr = torch.cat([wh.t().reshape(-1), wx.t().reshape(-1)]).contiguous()
+    gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    hstash = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    dx = (torch.empty((B, T * Dp), dtype=x2.dtype, device=dev)
+          if need_dx else None)
+    dw = torch.empty((Dp + H, 4 * H), dtype=torch.float32, device=dev)
+    db = torch.empty(4 * H, dtype=torch.float32, device=dev)
+    _launch(lib, "lstm_bwd_launch", [_PTR, _INT] + [_PTR] * 9, x2,
+            x2, x2.stride(0), _packed(w, D, Dp), wtr, _bias(b), g, gates,
+            hstash, dx if need_dx else None, dw, db, B, T, Dp, H)
+    lstm_window_bwd.launches += 1
+    dw = torch.cat([dw[:D], dw[Dp:]], dim=0).to(w.dtype)
+    return dx, dw, db.to(b.dtype)
+
+
+def _on_cpu(x2) -> bool:
+    return x2.device.type == "cpu"
+
+
+def _forward_k1(x2, w, b, T: int):
+    return lstm_last_flat_plain(x2, w, b, T) if _on_cpu(x2) else _k1(x2, w, b, T)
+
+
+def _forward_k2(x2c, w, b, wt, bt, T: int):
+    if _on_cpu(x2c):
+        return lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T)
+    return _k2(x2c, w, b, wt, bt, T)
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+
+
+def lstm_window_bwd(x2, w, b, g, T: int, need_dx: bool = True):
+    """K3: (dx or None, dw, db) of ``h_last = lstm_last_flat(x2, w, b, T)``
+    for the cotangent ``g`` [B, H].  dw and db do not depend on
+    ``need_dx``."""
+    if _on_cpu(x2):
+        return lstm_window_bwd_plain(x2, w, b, g, T, need_dx)
+    return _k3(x2, w, b, g, T, need_dx)
+
+
+lstm_window_bwd.launches = 0
+
+
+class _FlatOp(torch.autograd.Function):
+    """K1 with K3 (``need_dx=True``) as its backward: the counterpart of
+    pallas_lstm ``_flat_op``."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, T):
+        ctx.save_for_backward(x2, w, b)
+        ctx.T = T
+        return _forward_k1(x2, w, b, T)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, b = ctx.saved_tensors
+        dx, dw, db = lstm_window_bwd(x2, w, b, g, ctx.T, need_dx=True)
+        return dx, dw, db, None
+
+
+class _TripleOp(torch.autograd.Function):
+    """K2 with K3 (``need_dx=False``, on the first T*Dp lanes) as the
+    backward of h_s: the counterpart of pallas_lstm ``_triple_op``.  h_na
+    and h_nb are non-differentiable (the Double-DQN target is never
+    differentiated, drl_drqn.py:267-292); the window and the target
+    weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2c, w, b, wt, bt, T):
+        hs, hna, hnb = _forward_k2(x2c, w, b, wt, bt, T)
+        ctx.mark_non_differentiable(hna, hnb)
+        ctx.save_for_backward(x2c, w, b)
+        ctx.T = T
+        return hs, hna, hnb
+
+    @staticmethod
+    def backward(ctx, g_s, _g_na, _g_nb):
+        x2c, w, b = ctx.saved_tensors
+        T = ctx.T
+        _, dw, db = lstm_window_bwd(x2c[:, :T * _dims(w)[2]], w, b, g_s, T,
+                                    need_dx=False)
+        return None, dw, db, None, None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def lstm_last_flat(x2, w, b, T: int):
+    """K1: fused LSTM over a FLAT padded window -> last hidden [B, H] in
+    x2's dtype.  x2: [B, T*Dp]; w: [D+H, 4H]; b: [4H].  Differentiable
+    (K3 backward) when an input requires grad."""
+    if _wants_grad(x2, w, b):
+        return _FlatOp.apply(x2, w, b, T)
+    return _forward_k1(x2, w, b, T)
+
+
 lstm_last_flat.launches = 0
+
+
+def lstm_last_flat_dual(x2, wa, ba, wb, bb, T: int):
+    """K4: (h_last under weights a, h_last under weights b) for the same
+    flat windows.  Forward only: the outputs carry no gradient (the
+    Double-DQN target path)."""
+    with torch.no_grad():
+        if _on_cpu(x2):
+            return lstm_last_flat_dual_plain(x2, wa, ba, wb, bb, T)
+        D, H, Dp = _check_cuda("lstm_last_flat_dual", x2, T,
+                               wa, ba, wb, bb)
+        lib = _library()
+        ha, hb = (torch.empty((x2.shape[0], H), dtype=x2.dtype,
+                              device=x2.device) for _ in range(2))
+        _launch(lib, "lstm_dual_launch", [_PTR, _INT] + [_PTR] * 6, x2,
+                x2, x2.stride(0), _packed(wa, D, Dp), _bias(ba),
+                _packed(wb, D, Dp), _bias(bb), ha, hb, x2.shape[0], T, Dp, H)
+        lstm_last_flat_dual.launches += 1
+        return ha, hb
+
+
+lstm_last_flat_dual.launches = 0
+
+
+def lstm_last_flat_triple(x2c, w, b, wt, bt, T: int):
+    """K2: (h_s, h_na, h_nb) over a combined flat (T+1)-step window
+    [B, (T+1)*Dp]: the loss forward (steps 0..T-1, differentiable through
+    K3 when w or b requires grad) and the Double-DQN target pair (steps
+    1..T, online + target nets, no gradient)."""
+    if _wants_grad(w, b):
+        return _TripleOp.apply(x2c, w, b, wt, bt, T)
+    return _forward_k2(x2c, w, b, wt, bt, T)
+
+
+lstm_last_flat_triple.launches = 0
 
 
 def lstm_last(x, w, b):

@@ -1,13 +1,19 @@
 """Command-line interface of the port (diral_tpu/train/cli.py):
 
+    python -m diral_tpu_torch train       <config.yaml> [--slots N] [--seed S]
+                                          [--num-envs B] [--workdir DIR]
+                                          [--device cuda|cpu]
     python -m diral_tpu_torch eval        <config.yaml> [--steps N] [--seed S]
                                           [--num-envs B] [--device cuda|cpu]
     python -m diral_tpu_torch compare-sps <config.yaml> [same options]
 
-Parameters come from ``drqn_init`` with the port's generator seeded by
-``--seed`` (the JAX verbs' behaviour without ``--checkpoint``); the
-rollout itself is seeded 1, as in the JAX verbs.  Runs on the CUDA device
-unless ``--device cpu``.  Other verbs come with later slices.
+``train`` runs every simulation of the config (runner.run_all_simulations)
+and writes the reference-layout results under ``--workdir``.  For ``eval``
+and ``compare-sps`` the parameters come from ``drqn_init`` with the
+port's generator seeded by ``--seed`` (the JAX verbs' behaviour without
+``--checkpoint``); the rollout itself is seeded 1, as in the JAX verbs.
+Runs on the CUDA device unless ``--device cpu``.  Other verbs come with
+later slices.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ def _load(args):
     from diral_tpu_torch.config import load_config
 
     cfg = load_config(args.config)
+    if getattr(args, "slots", None):
+        cfg = dataclasses.replace(cfg, time_slots=args.slots)
     if args.num_envs:
         cfg = dataclasses.replace(
             cfg, engine=dataclasses.replace(cfg.engine,
@@ -68,9 +76,47 @@ def cmd_compare_sps(args):
                                          device=dev)))
 
 
+# options of the JAX ``train`` verb that wait for their ROADMAP items
+_NOT_YET = {"resume": "Queue 1 item 4, Checkpoint",
+            "mesh": "Queue 1 item 9, Parallel",
+            "coordinator": "Queue 1 item 9, Parallel",
+            "profile": "Queue 1 item 10, Profiling"}
+
+
+def cmd_train(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.runner import run_all_simulations
+
+    for opt, item in _NOT_YET.items():
+        if getattr(args, opt):
+            raise NotImplementedError(
+                f"--{opt} is not ported yet (ROADMAP {item})")
+    cfg = _load(args)
+    dev = resolve_device(args.device)
+    run_all_simulations(cfg, workdir=args.workdir, seed=args.seed,
+                        dtype=_DTYPE[cfg.engine.dtype], device=dev)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="diral_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    tp = sub.add_parser("train", help="DRQN training (the reference driver)")
+    tp.add_argument("config")
+    tp.add_argument("--slots", type=int, default=None,
+                    help="override time_slots")
+    tp.add_argument("--seed", type=int, default=None)
+    tp.add_argument("--num-envs", type=int, default=None)
+    tp.add_argument("--workdir", default=".")
+    tp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    tp.add_argument("--resume", action="store_true",
+                    help="not supported yet (ROADMAP Queue 1 item 4)")
+    tp.add_argument("--mesh", default=None,
+                    help="not supported yet (ROADMAP Queue 1 item 9)")
+    tp.add_argument("--coordinator", default=None,
+                    help="not supported yet (ROADMAP Queue 1 item 9)")
+    tp.add_argument("--profile", default=None,
+                    help="not supported yet (ROADMAP Queue 1 item 10)")
+    tp.set_defaults(fn=cmd_train)
     for name, fn, help_ in (
             ("eval", cmd_eval, "greedy evaluation of a DRQN"),
             ("compare-sps", cmd_compare_sps, "DIRAL vs SPS PRR comparison")):

@@ -22,7 +22,7 @@ from diral_tpu_torch.ops import _build
 from diral_tpu_torch.ops import channel_phase as K5
 from diral_tpu_torch.ops import lstm_window as K1
 from diral_tpu_torch.ops import piggy_hist as K6
-from diral_tpu_torch.train import evaluate
+from diral_tpu_torch.train import evaluate, runner
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -47,6 +47,9 @@ def test_package_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "diral_tpu_torch.envs.v2v_env" in res["modules"]
     assert "diral_tpu_torch.train.cli" in res["modules"]
+    for name in ("agents.drqn", "agents.replay", "agents.policies",
+                 "train.loop", "train.runner", "train.metrics", "convert"):
+        assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
 
@@ -89,6 +92,8 @@ def test_entry_points_default_to_cuda():
         evaluate.evaluate_drqn(cfg, None, 0, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate.evaluate_sps(cfg, 0, steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.train_experiment(cfg, "unused")
     out = subprocess.run(
         [sys.executable, "-m", "diral_tpu_torch", "eval",
          "configs/toy_4ue_3r.yaml", "--steps", "1"], cwd=ROOT,
@@ -116,12 +121,18 @@ def _refuse(*_a, **_k):
     raise AssertionError("the plain version ran for a non-CPU tensor")
 
 
+def _refuse_plain(monkeypatch):
+    monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
+    monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
+    for name in ("lstm_last_flat_plain", "lstm_last_flat_dual_plain",
+                 "lstm_last_flat_triple_plain", "lstm_window_bwd_plain"):
+        monkeypatch.setattr(K1, name, _refuse)
+
+
 def test_wrappers_never_fall_back(monkeypatch):
     """Tensors that are not on the CPU go to the kernel path, which raises
     here; the plain versions are never reached."""
-    monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
-    monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
-    monkeypatch.setattr(K1, "lstm_last_flat_plain", _refuse)
+    _refuse_plain(monkeypatch)
     meta = dict(device="meta")
     b, n = 2, 8
     with pytest.raises(ValueError, match="device"):
@@ -138,7 +149,18 @@ def test_wrappers_never_fall_back(monkeypatch):
         K1.lstm_last_flat(torch.empty(4, 6 * 32, **meta),
                           torch.empty(23 + 128, 512, **meta),
                           torch.empty(512, **meta), 6)
+    w, b = torch.empty(23 + 128, 512, **meta), torch.empty(512, **meta)
+    with pytest.raises(ValueError, match="device"):
+        K1.lstm_last_flat_triple(torch.empty(4, 7 * 32, **meta), w, b, w, b,
+                                 6)
+    with pytest.raises(ValueError, match="device"):
+        K1.lstm_last_flat_dual(torch.empty(4, 6 * 32, **meta), w, b, w, b, 6)
+    with pytest.raises(ValueError, match="device"):
+        K1.lstm_window_bwd(torch.empty(4, 6 * 32, **meta), w, b,
+                           torch.empty(4, 128, **meta), 6)
     assert K5.channel_phase.launches == K6.piggy_histogram.launches == 0
+    assert (K1.lstm_last_flat_triple.launches == K1.lstm_window_bwd.launches
+            == K1.lstm_last_flat_dual.launches == 0)
 
 
 class _FakeCuda(torch.Tensor):
@@ -154,7 +176,7 @@ def _cuda(*shape, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype).as_subclass(_FakeCuda)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, kernel):
     """A CUDA tensor handed to a wrapper where the kernel library cannot be
     built raises (naming nvcc) and never runs the plain version."""
@@ -162,13 +184,18 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, kernel):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LIBS", {})
-    monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
-    monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
-    monkeypatch.setattr(K1, "lstm_last_flat_plain", _refuse)
+    _refuse_plain(monkeypatch)
     b, n, i32 = 2, 8, torch.int32
+    w, bias = _cuda(23 + 128, 512), _cuda(512)
     wrapper, call = {
         "K1": (K1.lstm_last_flat, lambda: K1.lstm_last_flat(
             _cuda(4, 6 * 32), _cuda(23 + 128, 512), _cuda(512), 6)),
+        "K2": (K1.lstm_last_flat_triple, lambda: K1.lstm_last_flat_triple(
+            _cuda(4, 7 * 32), w, bias, w, bias, 6)),
+        "K3": (K1.lstm_window_bwd, lambda: K1.lstm_window_bwd(
+            _cuda(4, 6 * 32), w, bias, _cuda(4, 128), 6)),
+        "K4": (K1.lstm_last_flat_dual, lambda: K1.lstm_last_flat_dual(
+            _cuda(4, 6 * 32), w, bias, w, bias, 6)),
         "K5": (K5.channel_phase, lambda: K5.channel_phase(
             _cuda(b, n), _cuda(b, n), _cuda(b, n, dtype=i32),
             _cuda(b, n, n), _cuda(b, n, n), *(_cuda(b, n, n, dtype=i32)
