@@ -23,7 +23,10 @@ What differs from the JAX package, by design:
 * The gate, the mode band, the epsilon and beta schedules and the replay's
   write pointer follow from the slot index alone, so they live on the
   host and no slot waits on the device.  A train event the gate refuses
-  is skipped, not run and thrown away as ``episode_step`` does on the TPU.
+  is skipped, not run and thrown away as the JAX ``episode_step`` does.
+* There is one grain, the slot: the JAX package's episode grain is a
+  compile unit (one ``scan`` per episode), which eager PyTorch has no use
+  for; ``episode_interval`` ``slot_step`` calls are the same episode.
 * The actor and the env run under ``torch.no_grad()``; only the learner
   step records a graph.
 * All random draws of a run come from one ``Draws`` object.  Its default
@@ -47,6 +50,7 @@ from diral_tpu_torch.agents import drqn
 from diral_tpu_torch.agents import policies as pol
 from diral_tpu_torch.agents.replay import FusedWindowReplay
 from diral_tpu_torch.config import ExperimentConfig
+from diral_tpu_torch.device import resolve_device
 from diral_tpu_torch.envs import v2v_env as E
 from diral_tpu_torch.models import qnets
 from diral_tpu_torch.ops.lstm_window import padded_dim
@@ -204,16 +208,15 @@ class TrainCarry:
 
 class TrainFunctions:
     """``make_train_functions``' result: ``init_carry(draws)``,
-    ``slot_core`` / ``slot_step`` / ``episode_step`` (each ``(carry, t or
-    e, draws) -> (carry, logs)``), ``train_gate(t, replay)`` and
-    ``train_call``.  The carry is updated in place where that saves
-    memory (replay ring, learner)."""
+    ``slot_core`` / ``slot_step`` (each ``(carry, t, draws) -> (carry,
+    logs)``), ``train_gate(t, replay)`` and ``train_call``.  The carry is
+    updated in place where that saves memory (replay ring, learner)."""
 
     def __init__(self, cfg: ExperimentConfig, dtype=torch.float32,
                  device=None, trace=None):
         self.cfg = cfg
         self.dtype = dtype
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         env, acfg = cfg.env, cfg.agent
         self.B = cfg.engine.num_envs
         self.N, self.C, self.D = (env.num_users, env.num_channels,
@@ -416,27 +419,11 @@ class TrainFunctions:
             loss = self.train_call(carry.learner, carry.replay, t, draws)
         return carry, dict(logs, loss=loss)
 
-    def episode_step(self, carry: TrainCarry, e: int, draws: Draws):
-        """One episode: ``episode_interval`` slots, then the train event at
-        its last slot when the gate opens (train_after_episode configs;
-        the same as ``episode_interval`` slot_step calls).  Returns a list
-        of per-slot logs."""
-        cfg = self.cfg
-        t0 = e * cfg.episode_interval
-        out = []
-        for t in range(t0, t0 + cfg.episode_interval):
-            carry, logs = self.slot_core(carry, t, draws)
-            out.append(dict(logs, loss=None))
-        t_last = t0 + cfg.episode_interval - 1
-        if self.train_gate(t_last, carry.replay):
-            out[-1]["loss"] = self.train_call(carry.learner, carry.replay,
-                                              t_last, draws)
-        return carry, out
-
 
 def make_train_functions(cfg: ExperimentConfig, dtype=torch.float32,
                          device=None, trace=None) -> TrainFunctions:
-    """Build the training functions for ``cfg`` on ``device``.  ``trace``:
+    """Build the training functions for ``cfg`` on ``device`` (default
+    CUDA; raises without a GPU unless ``device="cpu"``).  ``trace``:
     optional [T_rec, N] recorded x positions replayed into the env (the
     reference's load_positions fixture, main_test.py:118)."""
     return TrainFunctions(cfg, dtype, device, trace)

@@ -69,8 +69,6 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
             base * 1_000_003 + simulation)
         draws = Draws(gen)
     carry = fns.init_carry(draws)
-    interval = cfg.episode_interval
-    episodic = cfg.training and cfg.train_after_episode
 
     writer = ResultWriter(workdir, cfg.experiment_name or "experiment",
                           simulation)
@@ -79,14 +77,9 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
     while t < cfg.time_slots:
         n = min(chunk, cfg.time_slots - t)
         logs = []
-        if episodic and t % interval == 0 and n % interval == 0:
-            for e in range(t // interval, (t + n) // interval):
-                carry, out = fns.episode_step(carry, e, draws)
-                logs += out
-        else:
-            for s in range(t, t + n):
-                carry, out = fns.slot_step(carry, s, draws)
-                logs.append(out)
+        for s in range(t, t + n):
+            carry, out = fns.slot_step(carry, s, draws)
+            logs.append(out)
         parts.append(_chunk_logs(logs, dtype, dev))
         t += n
 

@@ -22,7 +22,7 @@ from diral_tpu_torch.ops import _build
 from diral_tpu_torch.ops import channel_phase as K5
 from diral_tpu_torch.ops import lstm_window as K1
 from diral_tpu_torch.ops import piggy_hist as K6
-from diral_tpu_torch.train import evaluate, runner
+from diral_tpu_torch.train import evaluate, loop, runner
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -94,6 +94,8 @@ def test_entry_points_default_to_cuda():
         evaluate.evaluate_sps(cfg, 0, steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.train_experiment(cfg, "unused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.make_train_functions(cfg)
     out = subprocess.run(
         [sys.executable, "-m", "diral_tpu_torch", "eval",
          "configs/toy_4ue_3r.yaml", "--steps", "1"], cwd=ROOT,

@@ -10,7 +10,8 @@ test-side ``Draws`` that walks loop.py's key chain (loop.py:430, 435, 452,
   1e-9 (optax.adam and torch.optim.Adam order their arithmetic
   differently), the replay ring bit-equal.  The port's own ``init_carry``,
   given JAX's reset state and warmup/pretrain actions, equals JAX's init
-  carry bit for bit; episode grain equals slot grain.
+  carry bit for bit.  The runner's chunks, cut across episodes or not,
+  give the slot loop's results.
 * (j) The ``train`` verb on the CPU writes the reference-layout results;
   without ``--device cpu`` (no GPU here) it raises, and the options that
   wait for later slices raise naming their ROADMAP items.
@@ -36,6 +37,7 @@ from diral_tpu_torch.config import toy_4ue_3r as t_toy_4ue_3r
 from diral_tpu_torch.convert import train_carry_from_numpy
 from diral_tpu_torch.envs import v2v_env as tenv
 from diral_tpu_torch.train import loop as tloop
+from diral_tpu_torch.train import runner
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 SLOTS = 40
@@ -210,26 +212,37 @@ def test_slots_match_jax(jax_run):
                                   np.asarray(jcarry.history))
 
 
-def test_episode_grain_equals_slot_grain(jax_run):
-    d0, key, _, _ = jax_run
-    fns = tloop.make_train_functions(TCFG, torch.float64, "cpu")
-    c1, c2 = (train_carry_from_numpy(d0, TCFG) for _ in range(2))
-    slot_logs, ep_logs = [], []
+def test_runner_chunks_equal_slot_loop(tmp_path):
+    """train_experiment in chunks that cut episodes (7 slots) and in one
+    chunk gives, bit for bit, what a plain slot_step loop gives."""
+    cfg = dataclasses.replace(TCFG, time_slots=SLOTS)
+
+    def draws():
+        return tloop.Draws(torch.Generator().manual_seed(5))
+
+    fns = tloop.make_train_functions(cfg, torch.float64, "cpu")
+    d = draws()
+    carry, want = fns.init_carry(d), []
     for t in range(SLOTS):
-        c1, lg = fns.slot_step(c1, t, JaxChainDraws(key))
-        slot_logs.append(lg)
-    draws = JaxChainDraws(key)
-    for e in range(SLOTS // JCFG.episode_interval):
-        c2, out = fns.episode_step(c2, e, draws)
-        ep_logs += out
-    for a, b in zip(slot_logs, ep_logs):
-        assert torch.equal(a["actions"], b["actions"])
-        assert torch.equal(a["sum_reward"], b["sum_reward"])
-        assert (a["loss"] is None) == (b["loss"] is None)
-        assert a["loss"] is None or torch.equal(a["loss"], b["loss"])
-    for p, q in zip(c1.learner.params.parameters(),
-                    c2.learner.params.parameters()):
-        assert torch.equal(p, q)
+        carry, lg = fns.slot_step(carry, t, d)
+        want.append(lg)
+    assert sum(lg["loss"] is not None for lg in want) == 5
+    for chunk in (7, SLOTS):
+        c, logs = runner.train_experiment(
+            cfg, str(tmp_path / str(chunk)), chunk_size=chunk,
+            dtype=torch.float64, verbose=False, device="cpu",
+            draws=draws())
+        np.testing.assert_array_equal(
+            logs["actions"], np.stack([lg["actions"].numpy() for lg in want]))
+        np.testing.assert_array_equal(
+            logs["sum_reward"],
+            np.stack([lg["sum_reward"].numpy() for lg in want]))
+        np.testing.assert_array_equal(
+            logs["loss"], [0.0 if lg["loss"] is None else float(lg["loss"])
+                           for lg in want])
+        for p, q in zip(c.learner.params.parameters(),
+                        carry.learner.params.parameters()):
+            assert torch.equal(p, q)
 
 
 def test_bf16_compute_stores_ring_and_history_in_bf16():
