@@ -12,16 +12,20 @@ failure exits non-zero:
 3. kernel phases: each serving kernel against its plain PyTorch version
    on the card, at the shapes of the 100v/50r serving path, inputs from a
    numpy seed -- K1 LSTM window (max |dh| <= 1e-4), K5 channel walk
-   (bit-exact), K6 piggy histogram (bit-exact); kernel / plain / library
-   times (CUDA events, median of 7 after warm-up);
-4. reference phase: a small env (N = 40) stepped through the kernels on the
-   card and through the plain versions on the CPU, same actions: tables,
-   observations, rewards and state vectors bit-equal, Q-values within
-   1e-3;
+   (bit-exact), K6 piggy histogram (bit-exact); K7 lanes histogram
+   (bit-exact) at the PPO shape, the toy serving shape, a batch that is
+   not a multiple of the TPU pack width and N*N = 121; kernel / plain /
+   library times (CUDA events, median of 7 after warm-up);
+4. reference phases: a small env (N = 40) stepped through the kernels on
+   the card and through the plain versions on the CPU, same actions:
+   tables, observations, rewards and state vectors bit-equal, Q-values
+   within 1e-3; the same for an N = 6 env batch under
+   ``hist_impl="lanes"`` (K7 on the card);
 5. serving slice: ``compare_drqn_vs_sps`` on configs/scale_100v_50r.yaml
    (16 envs, float32) with every launch counter set to 0 just before and
    read just after (each kernel must have launched at least once per
-   step), then ``evaluate_drqn`` on the toy config at 256 envs (K1 only);
+   step), then ``evaluate_drqn`` on the toy config at 256 envs (K1 only,
+   then 20 slots under ``hist_impl="lanes"``: K7 too);
 6. training kernels at the toy (2048 rows, D = 23) and 100v/50r (25,600
    rows, D = 100) train-event shapes, float32 and bfloat16 windows: K2 and
    K4 bit-equal to K1; K2, K4 within 1e-4 of their plain versions (plus
@@ -37,8 +41,16 @@ failure exits non-zero:
    on the 100v/50r config (400 slots, 16 envs) with launch counters set to
    0 just before and read just after, a finite loss, slots/s and ms per
    train event; the ``train`` verb once through the CLI;
-9. a torch.profiler pass over toy and 100v/50r train events;
-10. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
+9. PPO slice: ``run_ppo`` on configs/ppo_congested.yaml at full width
+   (16 envs, H = 128) under ``hist_impl="lanes"``, 20 episodes, launch
+   counters around it (K7, K1, K3 at least as often as the code implies),
+   episodes/s, ms per PPO update and a torch.profiler pass over updates;
+   ``compare_ppo_vs_sps`` for 300 slots; the ``train-ppo`` verb;
+10. PS slice: ``run_ps`` on configs/congested_6v_5r.yaml at 32 envs under
+   ``hist_impl="lanes"``, PS-DQN and PS-DRQN for 8 episodes each, finite
+   losses, K7 launches; the ``train-ps`` verb;
+11. a torch.profiler pass over toy and 100v/50r train events;
+12. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It imports nothing of JAX nor of the JAX package.
 """
@@ -160,6 +172,29 @@ def lstm_train_inputs(torch, np, K1, dev, B, D, H, steps, seed, dtype):
     return x2, w, b, wt, bt, g
 
 
+def k3_gaps(torch, grads, plain, D):
+    """K3's (dx, dW, db) against its plain version: the largest gap of
+    dWx, dWh, db and dx over the largest plain value of each, whether
+    every gap is within 1e-3 of that value (plus one bf16 step for a bf16
+    dx: the two roundings may land one step apart), and the largest gap."""
+    (dx, dw, db), (pdx, pdw, pdb) = grads, plain
+    rel, ok, abs_g = {}, True, 0.0
+    for name, got, want in (("dWx", dw[:D], pdw[:D]),
+                            ("dWh", dw[D:], pdw[D:]), ("db", db, pdb),
+                            ("dx", dx, pdx)):
+        bf16 = got.dtype == torch.bfloat16
+        got, want = got.float(), want.float()
+        gap = (got - want).abs()
+        scale = float(want.abs().max())
+        rel[name] = float(gap.max()) / scale
+        abs_g = max(abs_g, float(gap.max()))
+        allow = 1e-3 * scale
+        if bf16:
+            allow = allow + bf16_ulp(torch, want)
+        ok &= bool((gap <= allow).all())
+    return rel, ok, abs_g
+
+
 def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
     """Phase 6: K2, K3 and K4 against K1 and their plain versions; returns
     the kernel rows (times at the 100v/50r train-event shape)."""
@@ -201,24 +236,9 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
 
         grads = {nd: K1.lstm_window_bwd(x2, w, b, g, T, nd)
                  for nd in (True, False)}
-        pdx, pdw, pdb = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
+        plain_g = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
         torch.cuda.synchronize()
-        dx, dw, db = grads[True]
-        rel, ok_g, abs_g = {}, True, 0.0
-        for name, got, want in (("dWx", dw[:D], pdw[:D]),
-                                ("dWh", dw[D:], pdw[D:]), ("db", db, pdb),
-                                ("dx", dx, pdx)):
-            got, want = got.float(), want.float()
-            gap = (got - want).abs()
-            scale = float(want.abs().max())
-            rel[name] = float(gap.max()) / scale
-            abs_g = max(abs_g, float(gap.max()))
-            allow = 1e-3 * scale
-            if name == "dx" and dtype == torch.bfloat16:
-                # dx is stored in bf16: the two roundings may land one
-                # bf16 step apart
-                allow = allow + bf16_ulp(torch, want)
-            ok_g &= bool((gap <= allow).all())
+        rel, ok_g, abs_g = k3_gaps(torch, grads[True], plain_g, D)
         modes = (torch.equal(grads[True][1], grads[False][1])
                  and torch.equal(grads[True][2], grads[False][2]))
         log(f"train kernels {label}: B={B} T={T} D={D} H={H}; K2/K4 vs K1 "
@@ -290,6 +310,70 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
     return rows
 
 
+def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
+    """K1 and K3 (with dx, as the PPO encoders' backward) at the PPO
+    path's shapes, float32: T = 6, D = 25, H = 128 over 96 rows (an actor
+    step: 16 envs x 6 vehicles) and 2400 rows (an update: 25 slots x 96).
+    Each against its plain version -- K1 within 1e-4, K3 within 1e-3 of
+    the largest plain value of dWx, dWh, db and dx -- and, at 2400 rows,
+    times against the bound, the plain version and cuDNN's LSTM.
+    Recorded as ``ppo_shape`` in the K1 and K3 rows."""
+    T, D, H = 6, 25, 128
+    Dp, G4 = K1.padded_dim(D), 4 * H
+    err1 = err3 = rel3 = 0.0
+    for B in (96, 2400):
+        x2, w, b, _, _, g = lstm_train_inputs(torch, np, K1, dev, B, D, H,
+                                              T, 12, torch.float32)
+        h = K1.lstm_last_flat(x2, w, b, T)
+        ph = K1.lstm_last_flat_plain(x2, w, b, T)
+        grads = K1.lstm_window_bwd(x2, w, b, g, T, True)
+        plain = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
+        torch.cuda.synchronize()
+        e1 = float((h - ph).abs().max())
+        rel, ok3, e3 = k3_gaps(torch, grads, plain, D)
+        err1, err3 = max(err1, e1), max(err3, e3)
+        rel3 = max(rel3, max(rel.values()))
+        log(f"K1/K3 at the PPO shape ({B} rows, T={T} D={D} H={H}): K1 "
+            f"max|dh|={e1:.3e} {'ok' if e1 <= 1e-4 else 'FAIL'}; K3 (dx) "
+            f"vs plain rel " + " ".join(f"{k}={v:.2e}" for k, v in
+                                         rel.items())
+            + f" {'ok' if ok3 else 'FAIL'}")
+        if e1 > 1e-4:
+            failures.append(f"K1 at the PPO shape ({B} rows)")
+        if not ok3:
+            failures.append(f"K3 at the PPO shape ({B} rows)")
+
+    # times at 2400 rows
+    x3 = K1.unflatten_window(x2, T, D).contiguous()
+    lstm = cudnn_lstm(torch, w, b, D, H, dev)
+    lib_params = [p.requires_grad_() for p in lstm.parameters()]
+    with torch.no_grad():
+        lib1 = cuda_ms(lambda: lstm(x3))
+    lib3 = cuda_ms(lambda: torch.autograd.grad(
+        lstm(x3)[0][:, -1], lib_params, grad_outputs=g))
+    t1 = cuda_ms(lambda: K1.lstm_last_flat(x2, w, b, T))
+    p1 = cuda_ms(lambda: K1.lstm_last_flat_plain(x2, w, b, T))
+    t3 = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, True))
+    p3 = cuda_ms(lambda: K1.lstm_window_bwd_plain(x2, w, b, g, T, True))
+    wbytes = 4 * (w.numel() + b.numel())
+    rows["K1"]["ppo_shape"] = dict(
+        rows=B, H=H, max_abs_err=err1, ms=t1, plain_ms=p1, library_ms=lib1,
+        **bound(2.0 * B * T * (D + H) * G4,
+                4 * (B * T * Dp + B * H) + wbytes, BF16_PEAK))
+    rows["K3"]["ppo_shape"] = dict(
+        rows=B, H=H, need_dx=True, max_abs_err=err3, max_rel_err=rel3,
+        ms=t3, plain_ms=p3, library_ms=lib3,
+        **bound(2.0 * B * G4 * (2 * T * (D + H) + T * H + T * D),
+                4 * (2 * B * T * Dp + B * H) + wbytes
+                + 4 * ((D + H) * G4 + G4), BF16_PEAK))
+    for k in ("K1", "K3"):
+        r = rows[k]["ppo_shape"]
+        log(f"{k} at the PPO update shape ({B} rows, H={H}): kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  cuDNN "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+
+
 def clone_learner(torch, drqn, qnets, learner, acfg, device):
     """An independent learner with the same online and target weights and
     a fresh Adam state, on ``device``."""
@@ -314,6 +398,231 @@ def profile_train_events(torch, label, fns, carry, t, draws, reps):
                 *device_profile(torch, events, reps), 10)
 
 
+def lanes_inputs(torch, np, dev, B, N, nbins, R, seed):
+    """signed [B, N*N] float32 with a quarter of the values on the exact
+    np.linspace edges and some at +-R or out of range; valid [B, N*N]."""
+    rng = np.random.RandomState(seed)
+    v = rng.uniform(-1.3 * R, 1.3 * R, (B, N * N))
+    edges = np.linspace(-R, R, nbins + 1, dtype=np.float32)
+    pick = rng.rand(B, N * N)
+    v = np.where(pick < 0.25, edges[rng.randint(0, nbins + 1, (B, N * N))], v)
+    v = np.where((pick >= 0.25) & (pick < 0.3),
+                 np.where(rng.rand(B, N * N) < 0.5, -R, R), v)
+    return (torch.from_numpy(v.astype(np.float32)).to(dev),
+            torch.from_numpy(rng.rand(B, N * N) < 0.7).to(dev))
+
+
+def k7_phase(torch, np, K7, dev, cuda_ms, failures):
+    """K7 against its plain version, bit for bit, at the PPO shape (16
+    envs x 6), the toy serving shape (256 x 4), a batch that is not a
+    multiple of the TPU pack width (5 x 6) and N*N = 121 (3 x 11); times
+    at the PPO shape.  Returns the kernel row."""
+    nbins, R = 20, 500.0
+    err = 0.0
+    for k, (label, B, N) in enumerate((("PPO", 16, 6), ("toy serving", 256, 4),
+                                       ("odd batch", 5, 6),
+                                       ("N*N=121", 3, 11))):
+        s, v = lanes_inputs(torch, np, dev, B, N, nbins, R, 40 + k)
+        gh, gc = K7.lanes_histogram(s, v, N, nbins, -R, R)
+        ph, pc = K7.lanes_histogram_plain(s, v, N, nbins, -R, R)
+        torch.cuda.synchronize()
+        same = torch.equal(gh, ph) and torch.equal(gc, pc)
+        gap = max(float((gh - ph).abs().max()), float((gc - pc).abs().max()))
+        err = max(err, gap)
+        log(f"K7 {label}: B={B} N={N} bins={nbins}: max|diff|={gap:.3e} "
+            f"{'bit-exact' if same else 'FAIL'}; counted "
+            f"{int(gh.sum())} of {int(v.sum())} valid entries")
+        if not same:
+            failures.append(f"K7 {label}")
+    B, N = 16, 6
+    s, v = lanes_inputs(torch, np, dev, B, N, nbins, R, 40)
+    ms = cuda_ms(lambda: K7.lanes_histogram(s, v, N, nbins, -R, R))
+    plain_ms = cuda_ms(lambda: K7.lanes_histogram_plain(s, v, N, nbins, -R,
+                                                        R))
+    # bytes: signed (4) and valid (1) per entry in, hist and cnt out;
+    # operations: two compares, an and and an add per (entry, bin)
+    row = dict(name="K7 lanes_hist (envs-in-lanes count histogram)",
+               route="cuda", source="diral_tpu_torch/csrc/lanes_hist.cu",
+               replaces="diral_tpu/ops/pallas_kernels.py:121",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(4.0 * B * N * N * nbins,
+                       5 * B * N * N + 4 * B * N * (nbins + 1), F32_PEAK))
+    log(f"K7 PPO shape: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+def lanes_reference_phase(torch, np, E, K7, cfg, dev, failures):
+    """An N = 6 env batch under hist_impl="lanes", stepped on the card (K7)
+    and on the CPU (its plain version) with the same actions: tables,
+    rewards and state vectors bit-equal."""
+    import dataclasses
+
+    env = dataclasses.replace(cfg.env, enable_design_topology=False)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    s_cpu = E.reset(env, 16, gen, torch.float32, "cpu")
+    s_gpu = E.EnvState(**{k: v.to(dev) for k, v in vars(s_cpu).items()})
+    rng = np.random.RandomState(9)
+    before, ok = K7.lanes_histogram.launches, True
+    with torch.inference_mode():
+        for step in range(25):
+            acts = torch.from_numpy(rng.randint(0, env.num_channels, (16, 6)))
+            s_cpu, o_cpu, r_cpu = E.step_channel(env, s_cpu, acts, step)
+            s_gpu, o_gpu, r_gpu = E.step_channel(env, s_gpu, acts.to(dev),
+                                                 step)
+            v_cpu = E.obtain_state(env, s_cpu, o_cpu, acts, r_cpu)
+            v_gpu = E.obtain_state(env, s_gpu, o_gpu, acts.to(dev), r_gpu)
+            pairs = [(r_cpu, r_gpu), (v_cpu, v_gpu)] + [
+                (getattr(s_cpu, f), getattr(s_gpu, f))
+                for f in ("table_x", "table_seq", "table_age", "pos_x")]
+            ok &= all(torch.equal(a, b.cpu()) for a, b in pairs)
+    torch.cuda.synchronize()
+    n = K7.lanes_histogram.launches - before
+    ok &= n == 25 and float(v_cpu[..., 5:].abs().sum()) > 0
+    log(f"reference lanes (N=6, 16 envs, 25 steps, K7 on the card vs CPU "
+        f"plain): {'bit-exact' if ok else 'FAIL'}, K7 launches {n}")
+    if not ok:
+        failures.append("lanes reference phase")
+
+
+def finite(np, *arrays):
+    return all(np.isfinite(np.asarray(a, dtype=np.float64)).all()
+               for a in arrays)
+
+
+def run_cli(here, argv, timeout=600):
+    out = subprocess.run([sys.executable, "-m", "diral_tpu_torch", *argv],
+                         cwd=here, capture_output=True, text=True,
+                         timeout=timeout, env=dict(os.environ, PYTHONPATH=here))
+    try:
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        res = None
+    return out, res
+
+
+def ppo_phase(torch, np, here, cfg, dev, zero_counts, read_counts, evaluate,
+              failures, episodes=20):
+    """Phase 9: the PPO slice at full width under hist_impl="lanes".
+    Returns the main path's label."""
+    from diral_tpu_torch.train import ppo_loop
+
+    L, B, N = cfg.episode_interval, cfg.engine.num_envs, cfg.env.num_users
+    epochs = cfg.agent.update_step
+    # per episode: K7 in every obtain_state (+1 in init_state); K1 for the
+    # actor every slot, the values (one call) and the bootstrap, and 3
+    # forwards per epoch; K3 for the two backwards per epoch
+    need = {"K7": episodes * L + 1, "K1": episodes * (L + 2 + 3 * epochs),
+            "K3": episodes * 2 * epochs}
+    path = f"ppo_congested x {B} envs ({episodes} episodes)"
+    zero_counts()
+    t0 = time.perf_counter()
+    learner, logs = ppo_loop.run_ppo(cfg, seed=0, num_episodes=episodes,
+                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(path)
+    ok = (finite(np, *logs.values())
+          and all(counts[k] >= n for k, n in need.items()))
+
+    fns = ppo_loop.make_ppo_functions(cfg, device=dev)
+    draws = ppo_loop.PPODraws(torch.Generator(device=dev).manual_seed(3))
+    env_state, history = fns.init_state(draws)
+    lrn = fns.init_learner(draws)
+    _, history, traj = fns.rollout(env_state, history, lrn, 0, draws)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fns.learn(lrn, traj, history)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    update_ms = statistics.median(times[1:])
+    log(f"PPO {path}: {episodes / wall:.3f} episodes/s, "
+        f"{episodes * L / wall:.1f} slots/s ({wall:.2f} s); PPO update "
+        f"({L * B * N} rows x {epochs} epochs) {update_ms:.3f} ms (median "
+        f"of 5); last loss {float(logs['loss'][-1]):.6g}, mean sum reward "
+        f"{float(logs['mean_sum_reward'].mean()):.4f}; launches {counts} "
+        f"(need {need}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("PPO slice")
+    log_profile("profile PPO update", "update", *device_profile(
+        torch, lambda: [fns.learn(lrn, traj, history) for _ in range(2)], 2),
+        10)
+    wall_ms, prow, busy = device_profile(
+        torch, lambda: fns.rollout(env_state, history, lrn, 1, draws), L)
+    log_profile(f"profile PPO rollout ({L} slots)", "slot", wall_ms, prow,
+                busy, 8)
+    ours = {k: sum(ms for key, ms, _ in prow if k in key)
+            for k in ("lanes_hist", "lstm_window")}
+    log("  kernels of the port: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us/slot ({100 * v / max(busy, 1e-9):.1f}%)"
+        for k, v in ours.items()))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = evaluate.compare_ppo_vs_sps(cfg, learner.params, 1, steps=STEPS,
+                                      device=dev)
+    torch.cuda.synchronize()
+    t_cmp = time.perf_counter() - t0
+    counts = read_counts(f"compare-ppo-sps ({STEPS} x 2 slots)")
+    vals = [v for m in (res["ppo"], res["sps"]) for v in m.values()]
+    ok = (finite(np, vals) and 0.0 <= res["ppo"]["mean_prr"] <= 1.0
+          and counts["K1"] >= STEPS and counts["K7"] >= STEPS)
+    log(f"compare-ppo-sps ppo_congested: {STEPS} steps x 2 policies in "
+        f"{t_cmp:.2f} s; launches {counts} {'ok' if ok else 'FAIL'}; "
+        f"{json.dumps(res)}")
+    if not ok:
+        failures.append("compare-ppo-sps")
+
+    cli, out = run_cli(here, ["train-ppo", os.path.join(
+        here, "configs", "ppo_congested.yaml"), "--episodes", "4"])
+    ok = cli.returncode == 0 and out is not None and out.get("episodes") == 4
+    log(f"CLI train-ppo --episodes 4: exit {cli.returncode}, {out} "
+        f"{'ok' if ok else 'FAIL: ' + cli.stderr[-2000:]}")
+    if not ok:
+        failures.append("CLI train-ppo")
+    return path
+
+
+def ps_phase(torch, np, here, cfg, dev, zero_counts, read_counts, failures,
+             episodes=8):
+    """Phase 10: PS-DQN and PS-DRQN on congested_6v_5r under
+    hist_impl="lanes"."""
+    from diral_tpu_torch.train import ps_loop
+
+    B, L = cfg.engine.num_envs, cfg.episode_interval
+    for algo in ps_loop.ALGOS:
+        path = f"{algo} congested_6v_5r x {B} envs ({episodes} episodes)"
+        zero_counts()
+        t0 = time.perf_counter()
+        _, logs = ps_loop.run_ps(cfg, algo, seed=0, num_episodes=episodes,
+                                 device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(path)
+        nb = ps_loop.n_batches(cfg, algo)
+        ok = (finite(np, *logs.values()) and nb > 0
+              and bool((logs["loss"] > 0).all())
+              and counts["K7"] >= episodes * L + 1)
+        log(f"{path}: {episodes / wall:.3f} episodes/s ({wall:.2f} s), "
+            f"{nb} batches/episode; losses "
+            f"{[round(float(x), 6) for x in logs['loss']]}; eps "
+            f"{float(logs['eps'][0]):.6g} -> {float(logs['eps'][-1]):.6g}; "
+            f"K7 launches {counts['K7']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"PS slice {algo}")
+    cli, out = run_cli(here, ["train-ps", os.path.join(
+        here, "configs", "congested_6v_5r.yaml"), "--algo", "ps-drqn",
+        "--episodes", "2", "--num-envs", str(B)])
+    ok = (cli.returncode == 0 and out is not None
+          and out.get("algo") == "ps-drqn" and out.get("episodes") == 2)
+    log(f"CLI train-ps --algo ps-drqn --episodes 2: exit {cli.returncode}, "
+        f"{out} {'ok' if ok else 'FAIL: ' + cli.stderr[-2000:]}")
+    if not ok:
+        failures.append("CLI train-ps")
+
+
 def main() -> int:
     import torch
 
@@ -330,6 +639,7 @@ def main() -> int:
     from diral_tpu_torch.models.recurrent import lstm_scan
     from diral_tpu_torch.ops import _build
     from diral_tpu_torch.ops import channel_phase as K5
+    from diral_tpu_torch.ops import lanes_hist as K7
     from diral_tpu_torch.ops import lstm_window as K1
     from diral_tpu_torch.ops import piggy_hist as K6
     from diral_tpu_torch.ops.distance import pairwise_distances
@@ -529,6 +839,9 @@ def main() -> int:
     log(f"K6: kernel {k6_ms:.4f} ms  plain {k6_plain_ms:.4f} ms  "
         f"bound {rows['K6']['bound_ms']:.5f} ms ({rows['K6']['bound_by']})")
 
+    # 3d. K7: the lanes histogram
+    rows["K7"] = k7_phase(torch, np, K7, dev, cuda_ms, failures)
+
     # 4. reference phase: kernels on the card vs plain versions on the CPU
     scale = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))
     import dataclasses
@@ -569,6 +882,16 @@ def main() -> int:
         f"{'bit-exact' if ref_ok else 'FAIL'}, max|dQ|={q_gap:.2e}")
     if not ref_ok:
         failures.append("reference phase")
+
+    def with_lanes(cfg, **engine):
+        env = dataclasses.replace(cfg.env, state=dataclasses.replace(
+            cfg.env.state, hist_impl="lanes"))
+        return dataclasses.replace(cfg, env=env, engine=dataclasses.replace(
+            cfg.engine, **engine))
+
+    ppo_cfg = with_lanes(load_config(os.path.join(here, "configs",
+                                                  "ppo_congested.yaml")))
+    lanes_reference_phase(torch, np, E, K7, ppo_cfg, dev, failures)
 
     # 5. slice: DIRAL vs SPS on the 100v/50r config through the kernels
     params = qnets.drqn_init(torch.Generator(device=dev).manual_seed(0),
@@ -627,6 +950,18 @@ def main() -> int:
         f"K1 launches {k1_toy}; {json.dumps(tres)}")
     if k1_toy < STEPS + 20 or not all(math.isfinite(v) for v in tres.values()):
         failures.append("toy slice")
+    K7.lanes_histogram.launches = 0
+    torch.cuda.synchronize()
+    lres = evaluate.evaluate_drqn(with_lanes(toy), tparams, 3, steps=20,
+                                  device=dev)
+    torch.cuda.synchronize()
+    k7_toy = K7.lanes_histogram.launches
+    rows["K7"]["launches_by_path"] = {"serve toy 256 envs (lanes, 20 slots)":
+                                      k7_toy}
+    log(f"greedy DRQN toy x 256 envs, hist_impl='lanes': K7 launches "
+        f"{k7_toy}; {json.dumps(lres)}")
+    if k7_toy < 20 or not all(math.isfinite(v) for v in lres.values()):
+        failures.append("toy slice (lanes)")
 
     # 6. training kernels K2, K3, K4
     rows.update(train_kernel_phase(torch, np, K1, dev, cuda_ms, bound,
@@ -638,7 +973,8 @@ def main() -> int:
     train_wrappers = {"K1": K1.lstm_last_flat,
                       "K2": K1.lstm_last_flat_triple,
                       "K3": K1.lstm_window_bwd, "K4": K1.lstm_last_flat_dual,
-                      "K5": K5.channel_phase, "K6": K6.piggy_histogram}
+                      "K5": K5.channel_phase, "K6": K6.piggy_histogram,
+                      "K7": K7.lanes_histogram}
 
     def zero_counts():
         for fn in train_wrappers.values():
@@ -780,13 +1116,23 @@ def main() -> int:
             "100v/50r x 16 envs (400 slots)", 0)
     rows["K4"]["launches"] = lcounts["K4"]
 
-    # 9. where a train event's time goes
+    # 9. PPO slice (K1, K3, K7) and 10. PS slice (K7)
+    ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures)
+    ppo_path = ppo_phase(torch, np, here, ppo_cfg, dev, zero_counts,
+                         read_counts, evaluate, failures)
+    rows["K7"]["launches"] = rows["K7"]["launches_by_path"].get(ppo_path, 0)
+    ps_cfg = with_lanes(load_config(os.path.join(here, "configs",
+                                                 "congested_6v_5r.yaml")),
+                        num_envs=32)
+    ps_phase(torch, np, here, ps_cfg, dev, zero_counts, read_counts, failures)
+
+    # 11. where a train event's time goes
     profile_train_events(torch, "toy", tfns, tcarry, toy_run.time_slots - 1,
                          tdraws, 3)
     profile_train_events(torch, "100v/50r", sfns, scarry,
                          scale_run.time_slots - 1, sdraws, 2)
 
-    # 10. results
+    # 12. results
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: rows[i].get(k) for k in order} | {
@@ -796,10 +1142,11 @@ def main() -> int:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     log(json.dumps({"kernels": kernels}))
-    # the run uses one card, whatever the machine holds
+    # the run uses one card (cuda:0); "count" is the run contract's
+    # torch.cuda.device_count(), 1 on the one-card machine it is run on
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,5 +1,7 @@
-"""The DRQN training loop's experience replay (diral_tpu/agents/replay.py
-``FusedWindowReplay``; reference utils/memory.py:162-194 ``Memory``).
+"""Experience replays (diral_tpu/agents/replay.py): the DRQN training
+loop's ``FusedWindowReplay`` (reference utils/memory.py:162-194
+``Memory``) and the PS-DQN ``TransitionReplay`` (memory.py:127-145,
+ps_dqn.py:326-334), below.
 
 One ring of whole env slots per env, every env advancing in lockstep.  A
 slot is ONE flat row of N*Dp lanes, Dp = ops/lstm_window.padded_dim(D):
@@ -95,3 +97,63 @@ class FusedWindowReplay:
             self.buf[:, i + self.capacity] = row
         self.ptr = (i + 1) % self.capacity
         self.count = min(self.count + 1, self.capacity)
+
+
+@dataclass
+class TransitionReplay:
+    """PS-DQN flat transition ring with mask/terminal channels.  ``head``
+    and ``count`` follow from the number of rows put, so they are host
+    integers; the buffers are updated in place."""
+
+    states: torch.Tensor     # [S, D]
+    actions: torch.Tensor    # [S] int32
+    rewards: torch.Tensor    # [S]
+    terminals: torch.Tensor  # [S] bool
+    masks: torch.Tensor      # [S] float (0 = padding, ps_dqn.py:155)
+    head: int = 0
+    count: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.states.shape[0]
+
+    @classmethod
+    def create(cls, capacity: int, state_dim: int, dtype=torch.float32,
+               device=None) -> "TransitionReplay":
+        def z(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+        return cls(states=z(capacity, state_dim),
+                   actions=z(capacity, dt=torch.int32), rewards=z(capacity),
+                   terminals=z(capacity, dt=torch.bool), masks=z(capacity))
+
+    def put(self, states, actions, rewards, terminals, masks) -> None:
+        """Append n transitions with wraparound: row i lands at (head + i)
+        % capacity, and head advances by n (the reference's wrapping put
+        sets ``head = split``, memory.py:144, a bug the JAX package fixes
+        too).  When n > capacity several rows share a slot; the last one
+        wins, i.e. only the last ``capacity`` rows are written (JAX's
+        scatter leaves that winner unspecified)."""
+        n, cap = states.shape[0], self.capacity
+        keep = min(n, cap)
+        idx = (self.head + n - keep
+               + torch.arange(keep, device=self.states.device)) % cap
+        for buf, val in ((self.states, states), (self.actions, actions),
+                         (self.rewards, rewards), (self.terminals, terminals),
+                         (self.masks, masks)):
+            buf[idx] = val[n - keep:].to(buf.dtype)
+        self.head = (self.head + n) % cap
+        self.count = min(self.count + n, cap)
+
+    def sample_indices(self, generator: torch.Generator, batch: int):
+        """Uniform indices in [0, max(count - 1, 1)) (ps_dqn.py:326-334:
+        index ~ choice(len - 1))."""
+        return torch.randint(0, max(self.count - 1, 1), (batch,),
+                             generator=generator, device=self.states.device)
+
+    def sample(self, idx) -> dict:
+        """The transitions at ``idx`` with their successors (idx + 1) %
+        capacity."""
+        return {"states": self.states[idx], "actions": self.actions[idx],
+                "rewards": self.rewards[idx], "terminals": self.terminals[idx],
+                "masks": self.masks[idx],
+                "next_states": self.states[(idx + 1) % self.capacity]}

@@ -1,5 +1,5 @@
-"""Carry DRQN parameters, a learner and a whole training carry from the JAX
-package's structures into the port.
+"""Carry parameters, learners, replays and a whole DRQN training carry
+from the JAX package's structures into the port.
 
 The inputs are plain dicts of numpy arrays under the JAX field names (a
 test flattens the flax structs into them; the port imports no JAX):
@@ -15,7 +15,13 @@ test flattens the flax structs into them; the port imports no JAX):
   "state", "replay": {"buf", "ptr", "count"}, "learner": as above,
   "eps_state": {"eps", "episode"}, "beta", "sum_ia_prev", "ia_counter",
   "prev_actions"}.  The replay's ``ptr`` / ``count`` (one per env, all
-  equal: the envs advance in lockstep) become host integers.
+  equal: the envs advance in lockstep) become host integers;
+* a PPO learner: {"params", "old_params", "mu", "nu", "count"} (optax
+  adam); a PS-DQN / PS-DRQN learner: {"params", "target_params", "mu",
+  "nu", "count"} (the adam inside their clip chain);
+* a transition replay {"states", "actions", "rewards", "terminals",
+  "masks", "head", "count"} and an episode replay {"states", "actions",
+  "rewards", "terminals", "lengths", "ptr", "count"}.
 """
 
 from __future__ import annotations
@@ -38,24 +44,84 @@ def drqn_params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
             for leaf, value in leaves.items()}
 
 
+def _tree(tree: dict, device=None) -> dict:
+    return {g: {k: _tensor(v, device) for k, v in leaves.items()}
+            for g, leaves in tree.items()}
+
+
+def _adam_state(opt, net, d: dict, device=None) -> None:
+    """optax adam's mu / nu / count -> ``torch.optim.Adam``'s exp_avg /
+    exp_avg_sq / step for every parameter of ``net``."""
+    for name, p in net.named_parameters():
+        group, leaf = name.split(".")
+        opt.state[p] = {
+            "step": torch.tensor(float(d["count"]), dtype=torch.float32),
+            "exp_avg": _tensor(d["mu"][group][leaf], device),
+            "exp_avg_sq": _tensor(d["nu"][group][leaf], device),
+        }
+
+
+def _load_rest(learner, second: str, d: dict, device=None):
+    """Load the learner's second net (``target_params`` or
+    ``old_params``, from ``d[second]``) and its Adam state."""
+    getattr(learner, second).load_state_dict(
+        drqn_params_from_numpy(d[second]))
+    _adam_state(learner.opt, learner.params, d, device)
+    return learner
+
+
 def learner_from_numpy(d: dict, cfg: AgentConfig, device=None):
     """The port's ``drqn.DRQNLearner`` from a JAX learner dict."""
     from diral_tpu_torch.agents import drqn
     from diral_tpu_torch.models import qnets
 
-    net = qnets.DRQN({g: {k: _tensor(v, device) for k, v in leaves.items()}
-                      for g, leaves in d["params"].items()}, cfg)
-    learner = drqn.init_learner(net, cfg)
-    learner.target_params.load_state_dict(
-        drqn_params_from_numpy(d["target_params"]))
-    for name, p in net.named_parameters():
-        group, leaf = name.split(".")
-        learner.opt.state[p] = {
-            "step": torch.tensor(float(d["count"]), dtype=torch.float32),
-            "exp_avg": _tensor(d["mu"][group][leaf], device),
-            "exp_avg_sq": _tensor(d["nu"][group][leaf], device),
-        }
-    return learner
+    learner = drqn.init_learner(qnets.DRQN(_tree(d["params"], device), cfg),
+                                cfg)
+    return _load_rest(learner, "target_params", d, device)
+
+
+def ppo_learner_from_numpy(d: dict, device=None):
+    """The port's ``ppo.PPOLearner`` from a JAX PPO learner dict."""
+    from diral_tpu_torch.agents import ppo
+    from diral_tpu_torch.models.qnets import ParamTree
+
+    learner = ppo.init_learner(ParamTree(_tree(d["params"], device)))
+    return _load_rest(learner, "old_params", d, device)
+
+
+def ps_dqn_learner_from_numpy(d: dict, cfg: AgentConfig, device=None):
+    """The port's ``dqn.PSDQNLearner`` from a JAX PS-DQN learner dict."""
+    from diral_tpu_torch.agents import dqn
+    from diral_tpu_torch.models.qnets import ParamTree
+
+    learner = dqn.init_learner(ParamTree(_tree(d["params"], device)), cfg)
+    return _load_rest(learner, "target_params", d, device)
+
+
+def ps_drqn_learner_from_numpy(d: dict, cfg: AgentConfig, device=None):
+    """The port's PS-DRQN learner (a ``dqn.PSDQNLearner``: the same
+    fields) from a JAX PS-DRQN learner dict."""
+    return ps_dqn_learner_from_numpy(d, cfg, device)
+
+
+def transition_replay_from_numpy(d: dict, device=None):
+    """The port's ``TransitionReplay`` from a JAX one's fields."""
+    from diral_tpu_torch.agents.replay import TransitionReplay
+
+    return TransitionReplay(
+        **{k: _tensor(d[k], device) for k in ("states", "actions", "rewards",
+                                              "terminals", "masks")},
+        head=int(d["head"]), count=int(d["count"]))
+
+
+def episode_replay_from_numpy(d: dict, device=None):
+    """The port's ``ps_drqn.EpisodeReplay`` from a JAX one's fields."""
+    from diral_tpu_torch.agents.ps_drqn import EpisodeReplay
+
+    return EpisodeReplay(
+        **{k: _tensor(d[k], device) for k in ("states", "actions", "rewards",
+                                              "terminals", "lengths")},
+        ptr=int(d["ptr"]), count=int(d["count"]))
 
 
 def _lockstep(v) -> int:

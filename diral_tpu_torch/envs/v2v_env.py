@@ -18,8 +18,10 @@ next through the live tables (vehicle.py:61).
 
 Kernels (on a CUDA device, under the JAX package's gates):
 ``step_channel``'s channel walk -> ops/channel_phase.py (K5), the type-2
-positional distribution -> ops/piggy_hist.py (K6).  ``state_generator``
-(the DQN-era state of the PS learners) comes with their slice.
+positional distribution -> ops/piggy_hist.py (K6), or, under
+``hist_impl="lanes"`` at N*N <= 128 in float32, its count histogram ->
+ops/lanes_hist.py (K7).  ``state_generator`` (the DQN-era state, which no
+training path of the JAX package calls) is not ported.
 
 Random functions (``update_velocity``) take their draws as tensors; the
 draws themselves come from the caller's generator (``sample_actions``,
@@ -45,6 +47,7 @@ from diral_tpu_torch.ops.channel_phase import (channel_phase,
 from diral_tpu_torch.ops.distance import pairwise_distances, signed_dx, sqrt
 from diral_tpu_torch.ops.histogram import (masked_count_histogram,
                                            masked_weighted_histogram)
+from diral_tpu_torch.ops.lanes_hist import MAX_ROW_PAIRS, lanes_histogram
 from diral_tpu_torch.ops.piggy_hist import piggy_histogram
 
 STALENESS_CUTOFF = 20
@@ -441,11 +444,20 @@ def _kernel_wanted(knob: str, impl: str, cfg: EnvConfig,
 
 
 def _kernel_hist_wanted(cfg: EnvConfig, like: torch.Tensor) -> bool:
+    """The K6 gate; "lanes" never takes K6 (v2v_env.py:624)."""
     if cfg.state.hist_impl == "lanes":
-        raise NotImplementedError(
-            "hist_impl='lanes' needs the envs-in-lanes histogram kernel "
-            "(K7), not yet ported: ROADMAP Queue 2")
+        return False
     return _kernel_wanted("hist_impl", cfg.state.hist_impl, cfg, like)
+
+
+def _lanes_hist_wanted(cfg: EnvConfig, like: torch.Tensor) -> bool:
+    """The K7 gate (v2v_env.py:692-694, 733): "lanes" at N*N <= 128 in
+    float32 -- on any device, as JAX forces the kernel there; the port's
+    env is batched, so JAX's custom_vmap rule is a direct call.  Other
+    "lanes" cases take the canonical op."""
+    return (cfg.state.hist_impl == "lanes"
+            and cfg.num_users ** 2 <= MAX_ROW_PAIRS
+            and like.dtype == torch.float32)
 
 
 def _kernel_step_wanted(cfg: EnvConfig, like: torch.Tensor) -> bool:
@@ -501,7 +513,9 @@ def positional_dist_piggy_type1(cfg: EnvConfig, state: EnvState):
 def positional_dist_piggy_type2(cfg: EnvConfig, state: EnvState):
     """Count histogram over +-bin_range divided by the visible-neighbour
     count (network.py:473-513). [B, N, num_bins].  The K6 kernel serves it
-    when ``_kernel_hist_wanted``; else the canonical bit-exact op."""
+    when ``_kernel_hist_wanted``, the K7 count histogram when
+    ``_lanes_hist_wanted``; else the canonical bit-exact op.  K7 and the
+    canonical op give the same counts bit for bit."""
     bins, rng = cfg.state.num_bins, float(cfg.bin_range)
     if _kernel_hist_wanted(cfg, state.pos_x):
         return piggy_histogram(
@@ -510,8 +524,14 @@ def positional_dist_piggy_type2(cfg: EnvConfig, state: EnvState):
             state.table_age.contiguous(), rng, bins)
     d, sign, fresh = _piggy_geometry(state)
     valid = fresh & (d < rng)
-    hist = masked_count_histogram(d * sign, valid, -rng, rng, bins)
-    cnt = valid.sum(dim=-1).to(hist.dtype)
+    if _lanes_hist_wanted(cfg, state.pos_x):
+        b, n = state.pos_x.shape
+        hist, cnt = lanes_histogram((d * sign).reshape(b, n * n).contiguous(),
+                                    valid.reshape(b, n * n).contiguous(),
+                                    n, bins, -rng, rng)
+    else:
+        hist = masked_count_histogram(d * sign, valid, -rng, rng, bins)
+        cnt = valid.sum(dim=-1).to(hist.dtype)
     safe = torch.where(cnt > 0, cnt, torch.ones_like(cnt))
     return torch.where(cnt[..., None] > 0, hist / safe[..., None],
                        torch.zeros_like(hist))

@@ -1,16 +1,23 @@
-"""The DRQN Q-net (diral_tpu/models/qnets.py; reference
-algorithms/drl_drqn.py:109-155): BasicLSTMCell(layers[0]) over the
-history window, last-step output -> dense(layers[1]) + relu + layer_norm
-(-> dense(layers[2]) + relu + layer_norm) -> linear head.  The MLP branch
-(``use_lstm_input=False``) replaces the LSTM with dense + relu +
-layer_norm.
+"""Q-value networks (diral_tpu/models/qnets.py):
 
-Parameters live in an ``nn.Module`` whose names follow the JAX tree
-(``lstm.w``, ``lstm.b``, ``fc2.w``, ``ln2.scale``, ...) and keep JAX's
-[in, out] weight layout, so a JAX parameter tree maps onto it name for
-name (convert.py).  The functions take the nested-dict view
-(``DRQN.tree()``), as the JAX ones take the pytree.  The PS-DQN /
-PS-DRQN nets come with later slices.
+* ``drqn`` (reference algorithms/drl_drqn.py:109-155):
+  BasicLSTMCell(layers[0]) over the history window, last-step output ->
+  dense(layers[1]) + relu + layer_norm (-> dense(layers[2]) + relu +
+  layer_norm) -> linear head.  The MLP branch (``use_lstm_input=False``)
+  replaces the LSTM with dense + relu + layer_norm.
+* ``ps_dqn`` (ps_dqn.py:158-198): 1-2 dense layers (relu or linear), a
+  linear head or dueling value/advantage heads with
+  ``q = v + a - mean(a)``.
+* ``ps_drqn`` (ps_drqn.py:119-166): 1-2 dense relu layers -> GRU ->
+  linear head; its dueling heads read the pre-RNN features and subtract
+  the SUM of the advantages -- both reference quirks, kept as the JAX
+  package keeps them.
+
+Parameters live in an ``nn.Module`` (``ParamTree``) whose names follow
+the JAX tree (``lstm.w``, ``lstm.b``, ``fc2.w``, ``ln2.scale``, ...) and
+keep JAX's [in, out] weight layout, so a JAX parameter tree maps onto it
+name for name (convert.py).  The functions take the nested-dict view
+(``tree()``), as the JAX ones take the pytree.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import torch
 from torch import nn
 
 from diral_tpu_torch.config import AgentConfig
-from diral_tpu_torch.models.recurrent import lstm_init, lstm_scan
+from diral_tpu_torch.models.recurrent import (gru_cell, gru_init, gru_scan,
+                                              lstm_init, lstm_scan)
 from diral_tpu_torch.ops import lstm_window
 
 _MATMUL_GROUPS = ("lstm", "fc1", "fc2", "fc3", "head")
@@ -51,13 +59,12 @@ def layer_norm(params, x, eps=1e-6):
     return y * params["scale"] + params["bias"]
 
 
-class DRQN(nn.Module):
+class ParamTree(nn.Module):
     """Parameter container: one submodule per JAX group, one parameter per
     leaf (state_dict keys ``lstm.w``, ``fc2.b``, ``ln2.scale``, ...)."""
 
-    def __init__(self, tree: dict, cfg: AgentConfig):
+    def __init__(self, tree: dict):
         super().__init__()
-        self.cfg = cfg
         for group, leaves in tree.items():
             sub = nn.Module()
             for name, value in leaves.items():
@@ -68,6 +75,14 @@ class DRQN(nn.Module):
     def tree(self) -> dict:
         return {g: dict(m.named_parameters(recurse=False))
                 for g, m in self.named_children()}
+
+
+class DRQN(ParamTree):
+    """The DRQN net's parameters; calling it applies ``drqn_apply``."""
+
+    def __init__(self, tree: dict, cfg: AgentConfig):
+        super().__init__(tree)
+        self.cfg = cfg
 
     def forward(self, x):
         return drqn_apply(self, x, self.cfg)
@@ -159,7 +174,7 @@ def _head_stack(params, h, cfg: AgentConfig, bf16: bool):
 
 
 def _tree(params):
-    return params.tree() if isinstance(params, DRQN) else params
+    return params.tree() if isinstance(params, ParamTree) else params
 
 
 def drqn_apply(params, x, cfg: AgentConfig):
@@ -249,3 +264,105 @@ def drqn_apply_dual(params_a, params_b, x, cfg: AgentConfig):
         xa, pa["lstm"]["w"], pa["lstm"]["b"], pb["lstm"]["w"],
         pb["lstm"]["b"], cfg.step_size)
     return _head_stack(pa, ha, cfg, bf16), _head_stack(pb, hb, cfg, bf16)
+
+
+# ---------------------------------------------------------------------------
+# PS-DQN feedforward net (optional dueling)
+# ---------------------------------------------------------------------------
+
+
+def _feature_layers(generator, state_dim, layers, dtype, device):
+    tree = {"fc1": dense_init(generator, state_dim, layers[0], dtype, device)}
+    if len(layers) >= 2:
+        tree["fc2"] = dense_init(generator, layers[0], layers[1], dtype,
+                                 device)
+    return tree, layers[min(len(layers), 2) - 1]
+
+
+def _heads(tree, generator, feat, action_dim, cfg, dtype, device):
+    if cfg.network.use_dueling:
+        tree["value"] = dense_init(generator, feat, 1, dtype, device)
+        # the advantage head has no bias (ps_dqn.py:191-192)
+        tree["advantage"] = {"w": dense_init(generator, feat, action_dim,
+                                             dtype, device)["w"]}
+    else:
+        tree["head"] = dense_init(generator, feat, action_dim, dtype, device)
+    return tree
+
+
+def ps_dqn_init(generator: torch.Generator, state_dim: int, action_dim: int,
+                cfg: AgentConfig, dtype=torch.float32,
+                device=None) -> ParamTree:
+    tree, feat = _feature_layers(generator, state_dim, cfg.network.layers,
+                                 dtype, device)
+    return ParamTree(_heads(tree, generator, feat, action_dim, cfg, dtype,
+                            device))
+
+
+def ps_dqn_apply(params, x, cfg: AgentConfig):
+    """x [B, D] -> Q [B, A]; dueling subtracts the MEAN advantage."""
+    params = _tree(params)
+    act = ((lambda v: v) if cfg.network.activation == "Linear"
+           else torch.relu)
+    h = act(dense(params["fc1"], x))
+    if "fc2" in params:
+        h = act(dense(params["fc2"], h))
+    if cfg.network.use_dueling:
+        a = h @ params["advantage"]["w"]
+        return dense(params["value"], h) + a - a.mean(dim=-1, keepdim=True)
+    return dense(params["head"], h)
+
+
+# ---------------------------------------------------------------------------
+# PS-DRQN net (dense -> GRU -> head), with carried hidden state
+# ---------------------------------------------------------------------------
+
+
+def ps_drqn_init(generator: torch.Generator, state_dim: int,
+                 action_dim: int, cfg: AgentConfig, dtype=torch.float32,
+                 device=None) -> ParamTree:
+    tree, feat = _feature_layers(generator, state_dim, cfg.network.layers,
+                                 dtype, device)
+    tree["gru"] = gru_init(generator, feat, feat, dtype, device)
+    return ParamTree(_heads(tree, generator, feat, action_dim, cfg, dtype,
+                            device))
+
+
+def _ps_drqn_features(params, x):
+    h = torch.relu(dense(params["fc1"], x))
+    if "fc2" in params:
+        h = torch.relu(dense(params["fc2"], h))
+    return h
+
+
+def ps_drqn_hidden_size(params) -> int:
+    return _tree(params)["gru"]["wc"].shape[1]
+
+
+def _ps_drqn_q(params, feats, h, cfg: AgentConfig):
+    """The head: dueling reads the pre-RNN features and subtracts the SUM
+    of the advantages (ps_drqn.py:155-160); else a linear head on h."""
+    if cfg.network.use_dueling:
+        a = feats @ params["advantage"]["w"]
+        return dense(params["value"], feats) + a - a.sum(dim=-1, keepdim=True)
+    return dense(params["head"], h)
+
+
+def ps_drqn_apply_seq(params, x, cfg: AgentConfig, h0=None):
+    """x [B, T, D] -> (Q [B*T, A], final hidden [B, H]): the reference's
+    flatten-then-reshape unroll (ps_drqn.py:146-162)."""
+    params = _tree(params)
+    feats = _ps_drqn_features(params, x)
+    h_n, hs = gru_scan(params["gru"], feats, h0)
+    q = _ps_drqn_q(params, feats.reshape(-1, feats.shape[-1]),
+                   hs.reshape(-1, hs.shape[-1]), cfg)
+    return q, h_n
+
+
+def ps_drqn_apply_step(params, x, h, cfg: AgentConfig):
+    """One inference step with carried per-agent hidden state
+    (ps_drqn.py:195-231). x [B, D], h [B, H] -> (Q [B, A], new h)."""
+    params = _tree(params)
+    feats = _ps_drqn_features(params, x)
+    new_h, _ = gru_cell(params["gru"], h, feats)
+    return _ps_drqn_q(params, feats, new_h, cfg), new_h

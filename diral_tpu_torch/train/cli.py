@@ -6,14 +6,23 @@
     python -m diral_tpu_torch eval        <config.yaml> [--steps N] [--seed S]
                                           [--num-envs B] [--device cuda|cpu]
     python -m diral_tpu_torch compare-sps <config.yaml> [same options]
+    python -m diral_tpu_torch train-ppo   <config.yaml> [--episodes N]
+                                          [--seed S] [--num-envs B]
+                                          [--device cuda|cpu]
+    python -m diral_tpu_torch train-ps    <config.yaml> [--algo ps-dqn|ps-drqn]
+                                          [--episodes N] [--seed S]
+                                          [--num-envs B] [--device cuda|cpu]
 
 ``train`` runs every simulation of the config (runner.run_all_simulations)
-and writes the reference-layout results under ``--workdir``.  For ``eval``
-and ``compare-sps`` the parameters come from ``drqn_init`` with the
-port's generator seeded by ``--seed`` (the JAX verbs' behaviour without
-``--checkpoint``); the rollout itself is seeded 1, as in the JAX verbs.
-Runs on the CUDA device unless ``--device cpu``.  Other verbs come with
-later slices.
+and writes the reference-layout results under ``--workdir``.
+``train-ppo`` (train/ppo_loop.run_ppo) and ``train-ps``
+(train/ps_loop.run_ps; ``--algo`` defaults to the config's
+``RLAgent.algorithm``) print one JSON line with the JAX verbs' keys.
+For ``eval`` and ``compare-sps`` the parameters come from ``drqn_init``
+with the port's generator seeded by ``--seed`` (the JAX verbs' behaviour
+without ``--checkpoint``); the rollout itself is seeded 1, as in the JAX
+verbs.  Runs on the CUDA device unless ``--device cpu``.  Other verbs
+come with later slices.
 """
 
 from __future__ import annotations
@@ -97,6 +106,38 @@ def cmd_train(args):
                         dtype=_DTYPE[cfg.engine.dtype], device=dev)
 
 
+def _reward_summary(sr) -> dict:
+    return {"episodes": int(sr.shape[0]),
+            "mean_sum_reward_first100": float(sr[:100].mean()),
+            "mean_sum_reward_last100": float(sr[-100:].mean())}
+
+
+def cmd_train_ppo(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.ppo_loop import run_ppo
+
+    cfg = _load(args)
+    dev = resolve_device(args.device)
+    _, logs = run_ppo(cfg, seed=args.seed or 0, num_episodes=args.episodes,
+                      dtype=_DTYPE[cfg.engine.dtype], device=dev)
+    print(json.dumps(_reward_summary(logs["mean_sum_reward"])))
+
+
+def cmd_train_ps(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.ps_loop import run_ps
+
+    cfg = _load(args)
+    algo = args.algo or cfg.agent.algorithm
+    dev = resolve_device(args.device)
+    _, logs = run_ps(cfg, algo, seed=args.seed or 0,
+                     num_episodes=args.episodes,
+                     dtype=_DTYPE[cfg.engine.dtype], device=dev)
+    print(json.dumps({"algo": algo.lower(),
+                      **_reward_summary(logs["mean_sum_reward"]),
+                      "final_eps": float(logs["eps"][-1])}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="diral_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -129,6 +170,22 @@ def main(argv=None):
                         help="cuda (default) or cpu")
         sp.add_argument("--checkpoint", default=None,
                         help="not supported yet (ROADMAP Queue 1 item 4)")
+        sp.set_defaults(fn=fn)
+    for name, fn, help_ in (
+            ("train-ppo", cmd_train_ppo, "on-policy PPO training"),
+            ("train-ps", cmd_train_ps,
+             "in-process PS-DQN / PS-DRQN training on the batched env")):
+        sp = sub.add_parser(name, help=help_)
+        sp.add_argument("config")
+        sp.add_argument("--seed", type=int, default=None)
+        sp.add_argument("--num-envs", type=int, default=None)
+        sp.add_argument("--episodes", type=int, default=None)
+        sp.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+        if name == "train-ps":
+            sp.add_argument("--algo", choices=["ps-dqn", "ps-drqn"],
+                            default=None,
+                            help="defaults to the config's RLAgent.algorithm")
         sp.set_defaults(fn=fn)
     args = p.parse_args(argv)
     args.fn(args)

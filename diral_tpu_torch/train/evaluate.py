@@ -3,8 +3,9 @@
 over SPS in the congested scenario, README.md:5).
 
 This is the serving path of the port: every vehicle runs the shared
-LSTM Q-net on its own history window and takes the greedy channel, slot
-after slot, for B envs at once.
+policy (the DRQN LSTM Q-net on its own history window, the PPO actor at
+its mode, or a PS-DQN / PS-DRQN Q-net on its current state) and takes
+the greedy channel, slot after slot, for B envs at once.
 
 Metrics:
 
@@ -26,8 +27,10 @@ from diral_tpu_torch.agents.sps import sps_init, sps_step, toy_rssi
 from diral_tpu_torch.config import EnvConfig, ExperimentConfig
 from diral_tpu_torch.device import resolve_device
 from diral_tpu_torch.envs import v2v_env as E
+from diral_tpu_torch.models import actor_critic as ac
 from diral_tpu_torch.models import qnets
 from diral_tpu_torch.ops.distance import pairwise_distances
+from diral_tpu_torch.train.ps_loop import canonical_algo
 
 
 def prr_per_user(cfg: EnvConfig, state: E.EnvState, actions):
@@ -155,18 +158,108 @@ def evaluate_sps(cfg: ExperimentConfig, seed: int, steps: int = 500,
                                        (sps0, sps0.prev_action), gen), steps)
 
 
+def ppo_act_fn(cfg: ExperimentConfig, params):
+    """The greedy PPO actor (evaluate.py:143-149): the policy logits of all
+    B*N agents, over their [T, D] history windows (LSTM encoder) or their
+    current state (feed-forward), and the argmax."""
+    acfg = cfg.agent
+    use_lstm = acfg.network.use_lstm_input
+
+    def act(actor, env_state, history, gen, t):
+        B, T, N, D = history.shape
+        if use_lstm:
+            x = history.transpose(1, 2).reshape(B * N, T, D)
+        else:
+            x = history[:, -1].reshape(B * N, D)
+        logits = ac.ppo_policy_logits(params, x, acfg)
+        return torch.argmax(logits, dim=-1).reshape(B, N), actor
+
+    return act
+
+
+def ps_act_fn(cfg: ExperimentConfig, params, algo: str, dtype, device):
+    """(act, actor0): the greedy PS-DQN / PS-DRQN actor (evaluate.py:
+    174-184) on the current state of all B*N agents, and its first carry
+    -- zeros of the GRU hidden for PS-DRQN, nothing for PS-DQN."""
+    acfg = cfg.agent
+    recurrent = canonical_algo(algo) == "ps-drqn"
+    M = cfg.engine.num_envs * cfg.env.num_users
+
+    def act(actor, env_state, history, gen, t):
+        B, _, N, D = history.shape
+        obs = history[:, -1].reshape(B * N, D)
+        if recurrent:
+            q, actor = qnets.ps_drqn_apply_step(params, obs, actor, acfg)
+        else:
+            q = qnets.ps_dqn_apply(params, obs, acfg)
+        return torch.argmax(q, dim=1).reshape(B, N), actor
+
+    actor0 = (torch.zeros((M, qnets.ps_drqn_hidden_size(params)),
+                          dtype=dtype, device=device) if recurrent else ())
+    return act, actor0
+
+
+@torch.inference_mode()
+def evaluate_ppo(cfg: ExperimentConfig, params, seed: int, steps: int = 500,
+                 dtype=torch.float32, device=None):
+    """Greedy (argmax-logit) rollout of a PS-PPO actor (evaluate.py:
+    124-152): the stochastic policy at its mode, the DRQN comparisons'
+    greedy band (main_test.py:129-136).  ``params``: the actor-critic
+    (models/actor_critic.ppo_init) on ``device``."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    env_state, history = _start(cfg, gen, dtype, dev)
+    return _rollout_metrics(cfg, ppo_act_fn(cfg, params),
+                            (env_state, history, (), gen), steps)
+
+
+@torch.inference_mode()
+def evaluate_ps(cfg: ExperimentConfig, params, seed: int, steps: int = 500,
+                algo: str = "ps-dqn", dtype=torch.float32, device=None):
+    """Greedy rollout of a PS-DQN / PS-DRQN Q-net (evaluate.py:155-186).
+    PS agents act on the CURRENT state (ps_dqn.py:200-235); PS-DRQN carries
+    the per-agent GRU hidden across slots from zeros (ps_drqn.py:195-231).
+    An unknown ``algo`` raises ValueError."""
+    dev = resolve_device(device)
+    act, actor0 = ps_act_fn(cfg, params, algo, dtype, dev)
+    gen = _generator(seed, dev)
+    env_state, history = _start(cfg, gen, dtype, dev)
+    return _rollout_metrics(cfg, act, (env_state, history, actor0, gen),
+                            steps)
+
+
+def _versus_sps(cfg, label, evaluate_policy, seed, steps, dtype, device):
+    """{label: policy metrics, "sps": SPS metrics, "prr_improvement"}, the
+    two rollouts seeded from ``seed``."""
+    dev = resolve_device(device)
+    s1, s2 = torch.randint(0, 2 ** 62, (2,),
+                           generator=_generator(seed, "cpu")).tolist()
+    mine = evaluate_policy(s1, dev)
+    sps_m = evaluate_sps(cfg, s2, steps, dtype=dtype, device=dev)
+    return {label: mine, "sps": sps_m,
+            "prr_improvement": mine["mean_prr"] / max(sps_m["mean_prr"], 1e-9)
+            - 1.0}
+
+
 def compare_drqn_vs_sps(cfg: ExperimentConfig, params, seed: int,
                         steps: int = 500, dtype=torch.float32, device=None):
     """The paper's comparison: PRR of the DRQN policy vs the SPS baseline
     on the same scenario family (two seeds derived from ``seed``)."""
-    dev = resolve_device(device)
-    s1, s2 = torch.randint(0, 2 ** 62, (2,),
-                           generator=_generator(seed, "cpu")).tolist()
-    drqn_m = evaluate_drqn(cfg, params, s1, steps, dtype, dev)
-    sps_m = evaluate_sps(cfg, s2, steps, dtype=dtype, device=dev)
-    return {
-        "drqn": drqn_m,
-        "sps": sps_m,
-        "prr_improvement": drqn_m["mean_prr"] / max(sps_m["mean_prr"], 1e-9)
-        - 1.0,
-    }
+    return _versus_sps(cfg, "drqn", lambda s, dev: evaluate_drqn(
+        cfg, params, s, steps, dtype, dev), seed, steps, dtype, device)
+
+
+def compare_ppo_vs_sps(cfg: ExperimentConfig, params, seed: int,
+                       steps: int = 500, dtype=torch.float32, device=None):
+    """PRR-vs-SPS for a PPO actor (evaluate.py:233-244)."""
+    return _versus_sps(cfg, "ppo", lambda s, dev: evaluate_ppo(
+        cfg, params, s, steps, dtype, dev), seed, steps, dtype, device)
+
+
+def compare_ps_vs_sps(cfg: ExperimentConfig, params, seed: int,
+                      steps: int = 500, algo: str = "ps-dqn",
+                      dtype=torch.float32, device=None):
+    """PRR-vs-SPS for a PS-DQN / PS-DRQN Q-net (evaluate.py:247-257)."""
+    return _versus_sps(cfg, algo.replace("-", "_"), lambda s, dev:
+                       evaluate_ps(cfg, params, s, steps, algo, dtype, dev),
+                       seed, steps, dtype, device)

@@ -198,13 +198,3 @@ def test_env_kernel_knobs(monkeypatch, impl, dtype, routed):
     s, obs, rew = tenv.step_channel(tc, s, acts, 0)
     tenv.obtain_state(tc, s, obs, acts, rew)
     assert calls == (["channel_phase", "piggy_histogram"] if routed else [])
-
-
-def test_lanes_hist_not_ported():
-    cfg = t_toy_4ue_3r().env
-    cfg = dataclasses.replace(cfg, state=dataclasses.replace(
-        cfg.state, hist_impl="lanes"))
-    s = tenv.reset(cfg, 2, torch.Generator().manual_seed(0), torch.float32,
-                   "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tenv.positional_dist_piggy_type2(cfg, s)

@@ -20,9 +20,10 @@ import torch
 from diral_tpu_torch.config import load_config
 from diral_tpu_torch.ops import _build
 from diral_tpu_torch.ops import channel_phase as K5
+from diral_tpu_torch.ops import lanes_hist as K7
 from diral_tpu_torch.ops import lstm_window as K1
 from diral_tpu_torch.ops import piggy_hist as K6
-from diral_tpu_torch.train import evaluate, loop, runner
+from diral_tpu_torch.train import evaluate, loop, ppo_loop, ps_loop, runner
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -48,7 +49,10 @@ def test_package_imports_no_jax():
     assert "diral_tpu_torch.envs.v2v_env" in res["modules"]
     assert "diral_tpu_torch.train.cli" in res["modules"]
     for name in ("agents.drqn", "agents.replay", "agents.policies",
-                 "train.loop", "train.runner", "train.metrics", "convert"):
+                 "train.loop", "train.runner", "train.metrics", "convert",
+                 "agents.ppo", "agents.dqn", "agents.ps_drqn",
+                 "models.actor_critic", "train.ppo_loop", "train.ps_loop",
+                 "ops.lanes_hist"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -96,11 +100,30 @@ def test_entry_points_default_to_cuda():
         runner.train_experiment(cfg, "unused")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.make_train_functions(cfg)
-    out = subprocess.run(
-        [sys.executable, "-m", "diral_tpu_torch", "eval",
-         "configs/toy_4ue_3r.yaml", "--steps", "1"], cwd=ROOT,
-        capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    ppo_cfg = load_config(os.path.join(ROOT, "configs", "ppo_congested.yaml"))
+    ps_cfg = load_config(os.path.join(ROOT, "configs",
+                                      "congested_6v_5r.yaml"))
+    for call in (lambda: ppo_loop.make_ppo_functions(ppo_cfg),
+                 lambda: ppo_loop.run_ppo(ppo_cfg, num_episodes=1),
+                 lambda: ps_loop.make_ps_functions(ps_cfg, "ps-dqn"),
+                 lambda: ps_loop.run_ps(ps_cfg, "ps-drqn", num_episodes=1),
+                 lambda: evaluate.evaluate_ppo(ppo_cfg, None, 0, steps=1),
+                 lambda: evaluate.evaluate_ps(ps_cfg, None, 0, steps=1),
+                 lambda: evaluate.compare_ppo_vs_sps(ppo_cfg, None, 0,
+                                                     steps=1),
+                 lambda: evaluate.compare_ps_vs_sps(ps_cfg, None, 0, steps=1,
+                                                    algo="ps-drqn")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for argv in (["eval", "configs/toy_4ue_3r.yaml", "--steps", "1"],
+                 ["train-ppo", "configs/ppo_congested.yaml", "--episodes",
+                  "1"],
+                 ["train-ps", "configs/congested_6v_5r.yaml", "--algo",
+                  "ps-dqn", "--episodes", "1"]):
+        out = subprocess.run([sys.executable, "-m", "diral_tpu_torch", *argv],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, argv
 
 
 def test_cli_on_cpu_and_checkpoint_refused():
@@ -126,6 +149,7 @@ def _refuse(*_a, **_k):
 def _refuse_plain(monkeypatch):
     monkeypatch.setattr(K5, "channel_phase_plain", _refuse)
     monkeypatch.setattr(K6, "piggy_histogram_plain", _refuse)
+    monkeypatch.setattr(K7, "lanes_histogram_plain", _refuse)
     for name in ("lstm_last_flat_plain", "lstm_last_flat_dual_plain",
                  "lstm_last_flat_triple_plain", "lstm_window_bwd_plain"):
         monkeypatch.setattr(K1, name, _refuse)
@@ -148,6 +172,10 @@ def test_wrappers_never_fall_back(monkeypatch):
                            torch.empty(b, n, n, dtype=torch.int32, **meta),
                            500.0, 20)
     with pytest.raises(ValueError, match="device"):
+        K7.lanes_histogram(torch.empty(b, 36, **meta),
+                           torch.empty(b, 36, dtype=torch.bool, **meta), 6,
+                           20, -500.0, 500.0)
+    with pytest.raises(ValueError, match="device"):
         K1.lstm_last_flat(torch.empty(4, 6 * 32, **meta),
                           torch.empty(23 + 128, 512, **meta),
                           torch.empty(512, **meta), 6)
@@ -160,7 +188,8 @@ def test_wrappers_never_fall_back(monkeypatch):
     with pytest.raises(ValueError, match="device"):
         K1.lstm_window_bwd(torch.empty(4, 6 * 32, **meta), w, b,
                            torch.empty(4, 128, **meta), 6)
-    assert K5.channel_phase.launches == K6.piggy_histogram.launches == 0
+    assert (K5.channel_phase.launches == K6.piggy_histogram.launches
+            == K7.lanes_histogram.launches == 0)
     assert (K1.lstm_last_flat_triple.launches == K1.lstm_window_bwd.launches
             == K1.lstm_last_flat_dual.launches == 0)
 
@@ -178,7 +207,8 @@ def _cuda(*shape, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype).as_subclass(_FakeCuda)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                    "K7"])
 def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, kernel):
     """A CUDA tensor handed to a wrapper where the kernel library cannot be
     built raises (naming nvcc) and never runs the plain version."""
@@ -206,6 +236,9 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, kernel):
         "K6": (K6.piggy_histogram, lambda: K6.piggy_histogram(
             _cuda(b, n, n), _cuda(b, n, n), _cuda(b, n), _cuda(b, n),
             _cuda(b, n, n, dtype=i32), 500.0, 20)),
+        "K7": (K7.lanes_histogram, lambda: K7.lanes_histogram(
+            _cuda(b, 36), _cuda(b, 36, dtype=torch.bool), 6, 20, -500.0,
+            500.0)),
     }[kernel]
     before = wrapper.launches
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -222,5 +255,5 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library("lstm_window")
-    assert sorted(_build.sources()) == ["channel_phase", "lstm_window",
-                                        "piggy_hist"]
+    assert sorted(_build.sources()) == ["channel_phase", "lanes_hist",
+                                        "lstm_window", "piggy_hist"]
