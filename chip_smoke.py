@@ -31,8 +31,11 @@ failure exits non-zero:
    K4 bit-equal to K1; K2, K4 within 1e-4 of their plain versions (plus
    one bf16 step for bf16 outputs); K3 within 1e-3 of the largest plain
    value for dWx, dWh, db and dx (plus one bf16 step for a bf16 dx), with
-   ``need_dx`` on and off giving bit-equal dW and db; times against the
-   bound, the plain version and cuDNN's LSTM;
+   ``need_dx`` on and off giving bit-equal dW and db and two calls on the
+   same inputs bit-equal -- also at H = 512 (4096 rows, D = 100) and at
+   ragged batches (97 and 2047 rows, D = 23); times against the bound,
+   the plain version and cuDNN's LSTM, and K3's row pass and reduction
+   (partial + combine) device times from torch.profiler;
 7. learner phase (toy shape): ``train_on_windows`` (K2 + K3) and
    ``train_on_packed`` (K1 + K3 with dx, K4) on one sampled row batch give
    the same loss and step; the card's gradients match the CPU's plain
@@ -44,7 +47,9 @@ failure exits non-zero:
 9. PPO slice: ``run_ppo`` on configs/ppo_congested.yaml at full width
    (16 envs, H = 128) under ``hist_impl="lanes"``, 20 episodes, launch
    counters around it (K7, K1, K3 at least as often as the code implies),
-   episodes/s, ms per PPO update and a torch.profiler pass over updates;
+   episodes/s, ms per PPO update and a torch.profiler pass over updates
+   (before it, K1 and K3 with dx at 96 and 2400 rows, H = 128, held as in
+   phase 6, K3's passes timed at 2400 rows);
    ``compare_ppo_vs_sps`` for 300 slots; the ``train-ppo`` verb;
 10. PS slice: ``run_ps`` on configs/congested_6v_5r.yaml at 32 envs under
    ``hist_impl="lanes"``, PS-DQN and PS-DRQN for 8 episodes each, finite
@@ -195,9 +200,56 @@ def k3_gaps(torch, grads, plain, D):
     return rel, ok, abs_g
 
 
+def k3_check(torch, K1, label, x2, w, b, g, T, D, failures):
+    """K3 against its plain version (``k3_gaps``), dW and db bit-equal with
+    ``need_dx`` on and off, and every output bit-equal across two calls
+    on the same inputs.  Returns (rel, ok, abs_g) of ``k3_gaps``."""
+    grads = K1.lstm_window_bwd(x2, w, b, g, T, True)
+    again = K1.lstm_window_bwd(x2, w, b, g, T, True)
+    no_dx = K1.lstm_window_bwd(x2, w, b, g, T, False)
+    plain = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
+    torch.cuda.synchronize()
+    rel, ok, abs_g = k3_gaps(torch, grads, plain, D)
+    modes = (torch.equal(grads[1], no_dx[1])
+             and torch.equal(grads[2], no_dx[2]))
+    repeat = all(torch.equal(p, q) for p, q in zip(grads, again))
+    B, H = x2.shape[0], w.shape[1] // 4
+    S = K1._reduce_plan(B, T, K1.padded_dim(D), H).splits
+    log(f"K3 {label}: B={B} T={T} D={D} H={H} S={S}; vs plain rel "
+        + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
+        + f" {'ok' if ok else 'FAIL'}; need_dx on/off dW, db "
+        f"{'bit-equal' if modes else 'FAIL'}; two calls "
+        f"{'bit-equal' if repeat else 'FAIL'}")
+    for bad, what in ((not ok, "vs plain"), (not modes, "need_dx modes"),
+                      (not repeat, "two calls differ")):
+        if bad:
+            failures.append(f"K3 {label}: {what}")
+    return rel, ok, abs_g
+
+
+def k3_pass_ms(torch, fn, T, B, Dp, H, x_bytes, reps=3):
+    """K3's two phases on the card under torch.profiler, device ms per
+    call: the row pass and the reduction (partial + combine passes), and
+    the reduction's own bound: its products at the bf16 peak, or its
+    bytes -- the float32 dgates scratch, the window (``x_bytes`` an
+    element) and the bf16 h stash read once, dW and db written once."""
+    torch.cuda.synchronize()
+    _, prow, _ = device_profile(torch, lambda: [fn() for _ in range(reps)],
+                                reps)
+    R, G = T * B, 4 * H
+    return dict(
+        rows_ms=sum(ms for k, ms, _ in prow if "lstm_bwd_rows" in k),
+        reduce_ms=sum(ms for k, ms, _ in prow
+                      if "lstm_bwd_partial" in k or "lstm_bwd_combine" in k),
+        reduce_bound_ms=bound(2.0 * R * (Dp + H) * G,
+                              R * (4 * G + x_bytes * Dp + 2 * H)
+                              + 4 * (Dp + H + 1) * G, BF16_PEAK)["bound_ms"])
+
+
 def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
-    """Phase 6: K2, K3 and K4 against K1 and their plain versions; returns
-    the kernel rows (times at the 100v/50r train-event shape)."""
+    """Phase 6: K2, K3 and K4 against K1 and their plain versions, K3 also
+    at H = 512 and at ragged batches; returns the kernel rows (times at
+    the 100v/50r train-event shape)."""
     T, H = 6, 256
     rows = {}
     for label, B, D, dtype in (
@@ -234,25 +286,16 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
             ok_h &= bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
             ok_h &= float(gap.median()) < 1e-6
 
-        grads = {nd: K1.lstm_window_bwd(x2, w, b, g, T, nd)
-                 for nd in (True, False)}
-        plain_g = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
-        torch.cuda.synchronize()
-        rel, ok_g, abs_g = k3_gaps(torch, grads[True], plain_g, D)
-        modes = (torch.equal(grads[True][1], grads[False][1])
-                 and torch.equal(grads[True][2], grads[False][2]))
         log(f"train kernels {label}: B={B} T={T} D={D} H={H}; K2/K4 vs K1 "
             f"{'bit-equal' if same else 'FAIL'}; vs plain max|dh| K2="
             f"{err_h['K2']:.3e} K4={err_h['K4']:.3e} "
-            f"{'ok' if ok_h else 'FAIL'}; K3 vs plain rel "
-            + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
-            + f" {'ok' if ok_g else 'FAIL'}; need_dx on/off dW, db "
-            f"{'bit-equal' if modes else 'FAIL'}")
+            f"{'ok' if ok_h else 'FAIL'}")
         for bad, what in ((not same, "bit-equal to K1"),
-                          (not ok_h, "vs plain"), (not ok_g, "K3 vs plain"),
-                          (not modes, "K3 need_dx modes")):
+                          (not ok_h, "vs plain")):
             if bad:
                 failures.append(f"train kernels {label}: {what}")
+        rel, _, abs_g = k3_check(torch, K1, label, x2, w, b, g, T, D,
+                                 failures)
         if dtype != torch.float32:
             continue
 
@@ -276,6 +319,9 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
         t3 = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, False))
         t3dx = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, True))
         p3 = cuda_ms(lambda: K1.lstm_window_bwd_plain(x2, w, b, g, T, False))
+        passes = k3_pass_ms(torch, lambda: K1.lstm_window_bwd(x2, w, b, g, T,
+                                                              False),
+                            T, B, Dp, H, 4)
         G4 = 4 * H
         wbytes = 4 * (w.numel() + b.numel())
         f2 = 2.0 * B * G4 * ((T + 1) * D + 2 * T * H + T * (D + H))
@@ -287,7 +333,10 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
         log(f"train kernels {label} times: K2 {t2:.4f} ms (plain {p2:.4f}, "
             f"3 cuDNN forwards {lib2:.4f}); K4 {t4:.4f} ms (plain {p4:.4f}, "
             f"2 cuDNN forwards {lib4:.4f}); K3 {t3:.4f} ms, with dx "
-            f"{t3dx:.4f} (plain {p3:.4f}, cuDNN forward + grad {lib3:.4f})")
+            f"{t3dx:.4f} (plain {p3:.4f}, cuDNN forward + grad {lib3:.4f}); "
+            f"K3 device ms per call: row pass {passes['rows_ms']:.4f}, "
+            f"reduction {passes['reduce_ms']:.4f} (its bound "
+            f"{passes['reduce_bound_ms']:.4f})")
         if label != "scale f32":
             continue
         common = dict(route="cuda", source="diral_tpu_torch/csrc/lstm_window.cu")
@@ -297,16 +346,24 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
             max_abs_err=err_h["K2"],
             ms=t2, plain_ms=p2, library_ms=lib2, **bound(f2, b2, BF16_PEAK))
         rows["K3"] = dict(
-            name="K3 lstm_bwd (recompute backward, need_dx=False; 2 launches)",
+            name="K3 lstm_bwd (recompute backward, need_dx=False; 3 launches)",
             **common, replaces="diral_tpu/ops/pallas_lstm.py:106",
             max_abs_err=abs_g, max_rel_err=max(rel.values()), ms=t3,
             ms_need_dx=t3dx, plain_ms=p3, library_ms=lib3,
+            splits=K1._reduce_plan(B, T, Dp, H).splits, **passes,
             **bound(f3, b3, BF16_PEAK))
         rows["K4"] = dict(
             name="K4 lstm_dual (online + target forward)", **common,
             replaces="diral_tpu/ops/pallas_lstm.py:255",
             max_abs_err=err_h["K4"],
             ms=t4, plain_ms=p4, library_ms=lib4, **bound(f4, b4, BF16_PEAK))
+
+    # K3 alone at H = 512 and at batches that cut into ragged chunks
+    for label, B, D, H in (("H=512", 4096, 100, 512), ("ragged 97", 97, 23, 256),
+                           ("ragged 2047", 2047, 23, 256)):
+        x2, w, b, _, _, g = lstm_train_inputs(torch, np, K1, dev, B, D, H, T,
+                                              8, torch.float32)
+        k3_check(torch, K1, label, x2, w, b, g, T, D, failures)
     return rows
 
 
@@ -314,9 +371,9 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
     """K1 and K3 (with dx, as the PPO encoders' backward) at the PPO
     path's shapes, float32: T = 6, D = 25, H = 128 over 96 rows (an actor
     step: 16 envs x 6 vehicles) and 2400 rows (an update: 25 slots x 96).
-    Each against its plain version -- K1 within 1e-4, K3 within 1e-3 of
-    the largest plain value of dWx, dWh, db and dx -- and, at 2400 rows,
-    times against the bound, the plain version and cuDNN's LSTM.
+    Each against its plain version -- K1 within 1e-4, K3 as ``k3_check``
+    holds it -- and, at 2400 rows, times against the bound, the plain
+    version and cuDNN's LSTM, and K3's two phases' device times.
     Recorded as ``ppo_shape`` in the K1 and K3 rows."""
     T, D, H = 6, 25, 128
     Dp, G4 = K1.padded_dim(D), 4 * H
@@ -326,22 +383,16 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
                                               T, 12, torch.float32)
         h = K1.lstm_last_flat(x2, w, b, T)
         ph = K1.lstm_last_flat_plain(x2, w, b, T)
-        grads = K1.lstm_window_bwd(x2, w, b, g, T, True)
-        plain = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
         torch.cuda.synchronize()
         e1 = float((h - ph).abs().max())
-        rel, ok3, e3 = k3_gaps(torch, grads, plain, D)
-        err1, err3 = max(err1, e1), max(err3, e3)
-        rel3 = max(rel3, max(rel.values()))
-        log(f"K1/K3 at the PPO shape ({B} rows, T={T} D={D} H={H}): K1 "
-            f"max|dh|={e1:.3e} {'ok' if e1 <= 1e-4 else 'FAIL'}; K3 (dx) "
-            f"vs plain rel " + " ".join(f"{k}={v:.2e}" for k, v in
-                                         rel.items())
-            + f" {'ok' if ok3 else 'FAIL'}")
+        log(f"K1 at the PPO shape ({B} rows, T={T} D={D} H={H}): "
+            f"max|dh|={e1:.3e} {'ok' if e1 <= 1e-4 else 'FAIL'}")
         if e1 > 1e-4:
             failures.append(f"K1 at the PPO shape ({B} rows)")
-        if not ok3:
-            failures.append(f"K3 at the PPO shape ({B} rows)")
+        rel, _, e3 = k3_check(torch, K1, f"PPO shape, dx ({B} rows)", x2, w,
+                              b, g, T, D, failures)
+        err1, err3 = max(err1, e1), max(err3, e3)
+        rel3 = max(rel3, max(rel.values()))
 
     # times at 2400 rows
     x3 = K1.unflatten_window(x2, T, D).contiguous()
@@ -363,6 +414,9 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
     rows["K3"]["ppo_shape"] = dict(
         rows=B, H=H, need_dx=True, max_abs_err=err3, max_rel_err=rel3,
         ms=t3, plain_ms=p3, library_ms=lib3,
+        splits=K1._reduce_plan(B, T, Dp, H).splits,
+        **k3_pass_ms(torch, lambda: K1.lstm_window_bwd(x2, w, b, g, T, True),
+                     T, B, Dp, H, 4),
         **bound(2.0 * B * G4 * (2 * T * (D + H) + T * H + T * D),
                 4 * (2 * B * T * Dp + B * H) + wbytes
                 + 4 * ((D + H) * G4 + G4), BF16_PEAK))
@@ -371,7 +425,10 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
         log(f"{k} at the PPO update shape ({B} rows, H={H}): kernel "
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  cuDNN "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']})" + (
+                f"; device ms per call: row pass {r['rows_ms']:.4f}, "
+                f"reduction {r['reduce_ms']:.4f} (its bound "
+                f"{r['reduce_bound_ms']:.5f})" if k == "K3" else ""))
 
 
 def clone_learner(torch, drqn, qnets, learner, acfg, device):

@@ -29,12 +29,19 @@ sums (and last bits of exp/tanh).
 
 Wrappers: CPU tensors run the plain version, CUDA tensors launch the
 kernel or raise.  Each wrapper's ``launches`` counts kernel launches (a K3
-call counts once, though it is two launches).
+call counts once, though it is three launches: the row pass, then the
+dW/db reduction as a split-K partial pass and an in-order combine).
+
+K3's reduction cuts the T*B rows into S chunks by ``_reduce_plan``, a
+function of the shape alone (never of the card), so dW and db are the
+same bits on any card; the wrapper allocates the float32 partials
+[S, Dp+H+1, 4H] (the last row holds db's) with the rest of the scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -144,13 +151,11 @@ def lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T: int):
     return h_s, h_na, h_nb
 
 
-def lstm_window_bwd_plain(x2, w, b, g, T: int, need_dx: bool = True):
-    """Plain PyTorch version of K3, the arithmetic of pallas_lstm
-    ``_bwd_kernel``: recompute the forward (h_{t-1} rounded to bf16, c in
-    float32), then sweep back from the cotangent ``g`` [B, H] of the last
-    hidden state; dgates are rounded to bf16 before the dh, dx and dW
-    products, db sums them unrounded.  Returns (dx [B, T*Dp] in x2's dtype
-    or None, dw [D+H, 4H] in w's dtype, db [4H] in b's dtype)."""
+def _bwd_plain_terms(x2, w, b, g, T: int, need_dx: bool):
+    """K3's plain recompute and backward sweep: (dx or None, terms), where
+    terms lists, for t = T-1 down to 0, (bf16 x_t [B, Dp], bf16 h_{t-1}
+    [B, H], unrounded float32 dgates_t [B, 4H]) -- the rows that dW and db
+    sum over."""
     f32 = torch.float32
     D, H, Dp = _dims(w)
     _check_width(x2, T * Dp)
@@ -169,11 +174,9 @@ def lstm_window_bwd_plain(x2, w, b, g, T: int, need_dx: bool = True):
         acts.append(act)
     dh = g.to(f32)
     dc = torch.zeros_like(dh)
-    dwx = torch.zeros((Dp, 4 * H), dtype=f32, device=dev)
-    dwh = torch.zeros((H, 4 * H), dtype=f32, device=dev)
-    db = torch.zeros(4 * H, dtype=f32, device=dev)
     dx = (torch.zeros((B, T * Dp), dtype=x2.dtype, device=dev)
           if need_dx else None)
+    terms = []
     for t in reversed(range(T)):
         si, tg, sf, so = acts[t]
         c_prev = cs[t]
@@ -190,8 +193,27 @@ def lstm_window_bwd_plain(x2, w, b, g, T: int, need_dx: bool = True):
         dh = dgb @ wh.T
         if need_dx:
             dx[:, t * Dp:(t + 1) * Dp] = (dgb @ wx.T).to(x2.dtype)
-        dwx += xs[t].T @ dgb
-        dwh += h_prev[t].T @ dgb
+        terms.append((xs[t], h_prev[t], dgates))
+    return dx, terms
+
+
+def lstm_window_bwd_plain(x2, w, b, g, T: int, need_dx: bool = True):
+    """Plain PyTorch version of K3, the arithmetic of pallas_lstm
+    ``_bwd_kernel``: recompute the forward (h_{t-1} rounded to bf16, c in
+    float32), then sweep back from the cotangent ``g`` [B, H] of the last
+    hidden state; dgates are rounded to bf16 before the dh, dx and dW
+    products, db sums them unrounded.  Returns (dx [B, T*Dp] in x2's dtype
+    or None, dw [D+H, 4H] in w's dtype, db [4H] in b's dtype)."""
+    f32 = torch.float32
+    D, H, Dp = _dims(w)
+    dx, terms = _bwd_plain_terms(x2, w, b, g, T, need_dx)
+    dwx = torch.zeros((Dp, 4 * H), dtype=f32, device=x2.device)
+    dwh = torch.zeros((H, 4 * H), dtype=f32, device=x2.device)
+    db = torch.zeros(4 * H, dtype=f32, device=x2.device)
+    for x_t, h_t, dgates in terms:
+        dgb = _bf(dgates)
+        dwx += x_t.T @ dgb
+        dwh += h_t.T @ dgb
         db += dgates.sum(dim=0)
     dw = torch.cat([dwx[:D], dwh], dim=0).to(w.dtype)
     return dx, dw, db.to(b.dtype)
@@ -272,25 +294,77 @@ def _k2(x2c, w, b, wt, bt, T: int):
     return tuple(outs)
 
 
+# K3's reduction plan: output tiles of _RED_TILE x _RED_TILE, chunks of
+# about _RED_CHUNK rows and at least _RED_MIN_ROWS, enough of them for
+# _RED_MIN_BLOCKS blocks (two waves of the H100's 132 SMs), and at most
+# _RED_SCRATCH bytes of partials.
+_RED_TILE = 128
+_RED_CHUNK = 2048
+_RED_MIN_ROWS = 64
+_RED_MIN_BLOCKS = 264
+_RED_SCRATCH = 256 << 20
+
+
+class ReducePlan(NamedTuple):
+    """How K3's reduction splits its T*B rows: ``per_step`` chunks per
+    step, ``splits`` = T * per_step in all; split s is chunk
+    k = s % per_step of step t = s // per_step, rows k*B // per_step up to
+    (k+1)*B // per_step of that step (``chunks``)."""
+    per_step: int
+    splits: int
+
+    def chunks(self, B: int):
+        """[(t, row0, row1)] of each split, in order of s."""
+        p = self.per_step
+        return [(s // p, (s % p) * B // p, (s % p + 1) * B // p)
+                for s in range(self.splits)]
+
+
+def _reduce_plan(B: int, T: int, Dp: int, H: int) -> ReducePlan:
+    """K3's reduction plan for the shape (B, T, Dp, H), and nothing else:
+    chunks of about ``_RED_CHUNK`` rows, more where that leaves fewer
+    than ``_RED_MIN_BLOCKS`` blocks, never under ``_RED_MIN_ROWS`` rows
+    (a step of fewer rows is one chunk), never over ``_RED_SCRATCH``
+    bytes of partials; a chunk never crosses a step."""
+    M, G = Dp + H, 4 * H
+    tiles = -(-M // _RED_TILE) * (G // _RED_TILE)
+    split_bytes = 4 * (M + 1) * G
+    if T * split_bytes > _RED_SCRATCH:
+        raise ValueError(f"lstm_window_bwd: T={T}, Dp={Dp}, H={H} needs "
+                         f"{T * split_bytes} bytes of partials, over "
+                         f"{_RED_SCRATCH}")
+    per_step = max(-(-B // _RED_CHUNK), -(-_RED_MIN_BLOCKS // (T * tiles)))
+    per_step = min(per_step, max(1, B // _RED_MIN_ROWS),
+                   _RED_SCRATCH // (T * split_bytes))
+    return ReducePlan(per_step, T * per_step)
+
+
 def _k3(x2, w, b, g, T: int, need_dx: bool):
     D, H, Dp = _check_cuda("lstm_window_bwd", x2, T, w, b)
+    if x2.data_ptr() % 16 or x2.stride(0) % 8:
+        raise ValueError("lstm_window_bwd: window rows must start at "
+                         "16-byte boundaries (row stride a multiple of 8)")
     lib = _library()
     B, dev = x2.shape[0], x2.device
     g = g.to(x2.dtype).contiguous()
     if tuple(g.shape) != (B, H):
         raise ValueError(f"lstm_window_bwd: cotangent {tuple(g.shape)} != "
                          f"{(B, H)}")
+    plan = _reduce_plan(B, T, Dp, H)
     wx, wh = _split_weights(w, D, Dp)
     wtr = torch.cat([wh.t().reshape(-1), wx.t().reshape(-1)]).contiguous()
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     hstash = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((plan.splits, Dp + H + 1, 4 * H), dtype=torch.float32,
+                       device=dev)
     dx = (torch.empty((B, T * Dp), dtype=x2.dtype, device=dev)
           if need_dx else None)
     dw = torch.empty((Dp + H, 4 * H), dtype=torch.float32, device=dev)
     db = torch.empty(4 * H, dtype=torch.float32, device=dev)
-    _launch(lib, "lstm_bwd_launch", [_PTR, _INT] + [_PTR] * 9, x2,
+    _launch(lib, "lstm_bwd_launch", [_PTR, _INT] + [_PTR] * 10 + [_INT], x2,
             x2, x2.stride(0), _packed(w, D, Dp), wtr, _bias(b), g, gates,
-            hstash, dx if need_dx else None, dw, db, B, T, Dp, H)
+            hstash, dx if need_dx else None, dw, db, part, plan.per_step,
+            B, T, Dp, H)
     lstm_window_bwd.launches += 1
     dw = torch.cat([dw[:D], dw[Dp:]], dim=0).to(w.dtype)
     return dx, dw, db.to(b.dtype)

@@ -61,7 +61,8 @@ def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("B,T,D,H", [(64, 6, 23, 128), (37, 6, 100, 256)])
+@pytest.mark.parametrize("B,T,D,H", [(64, 6, 23, 128), (37, 6, 100, 256),
+                                     (97, 6, 100, 512), (2047, 6, 23, 256)])
 def test_k3_plain_matches_tpu_backward(B, T, D, H):
     w, b = _net(D, H, 0)
     x2 = _window(B, T, D, 1)
