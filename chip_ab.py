@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Times the LSTM forward kernels of several checkouts on the card, one
+process each, to compare two commits within one call.
+
+    python3 chip_ab.py TREE [TREE ...]
+
+Each TREE is a checkout of this repository, for instance the parent
+commit unpacked with ``git archive`` into a directory that .gitignore
+lists; give parent, change, change, parent to see the spread between
+runs of one tree.  Each tree builds its own kernels and prints one line
+``AB {json}`` (times in ms, NVIDIA name and power limit on the first
+line): CUDA-event times (median of 9 after 3 warm-up calls) and
+torch.profiler device times of K1 at the serving shape (1600 rows, D =
+100), the PPO update shape (2400 rows, D = 25, H = 128) and the toy and
+100v/50r train-event shapes (2048 rows, D = 23; 25,600 rows, D = 100),
+of K2 and K4 at the last two, cuDNN's LSTM forwards beside each
+(``cudnn1`` / ``cudnn2`` / ``cudnn3``: one, two or three forwards), and
+the 100v/50r train event after 400 slots of training (host clock, median
+of 5 after a warm one) with its device busy time.  Needs one CUDA device
+and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+T = 6
+SHAPES = (("1600", 1600, 100, 256), ("2400h128", 2400, 25, 128),
+          ("2048", 2048, 23, 256), ("25600", 25600, 100, 256))
+
+
+def time_tree(root: str) -> dict:
+    """The forwards, cuDNN and the 100v/50r train event of one checkout."""
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.ops import lstm_window as K1
+    from diral_tpu_torch.train import loop, runner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def cuda_ms(fn, reps=9, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def device_ms(fn, kernel, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        _, rows, _ = cs.device_profile(
+            torch, lambda: [fn() for _ in range(reps)], reps)
+        return sum(ms for key, ms, _ in rows if kernel in key)
+
+    out = {"tree": os.path.basename(os.path.normpath(root))}
+    for tag, B, D, H in SHAPES:
+        Dp = K1.padded_dim(D)
+        x2c, w, b, wt, bt, _ = cs.lstm_train_inputs(
+            torch, np, K1, dev, B, D, H, T + 1, 7, torch.float32)
+        x2, xn = x2c[:, :T * Dp].contiguous(), x2c[:, Dp:]
+        calls = {"K1": (lambda: K1.lstm_last_flat(x2, w, b, T),
+                        "lstm_window")}
+        if B >= 2048:
+            calls["K2"] = (lambda: K1.lstm_last_flat_triple(x2c, w, b, wt,
+                                                            bt, T),
+                           "lstm_triple")
+            calls["K4"] = (lambda: K1.lstm_last_flat_dual(xn, w, b, wt, bt,
+                                                          T), "lstm_dual")
+        for k, (fn, kernel) in calls.items():
+            out[f"{k}_{tag}"] = cuda_ms(fn)
+            out[f"{k}dev_{tag}"] = device_ms(fn, kernel)
+        x3 = K1.unflatten_window(x2, T, D).contiguous()
+        xn3 = K1.unflatten_window(xn, T, D).contiguous()
+        lstm = cs.cudnn_lstm(torch, w, b, D, H, dev)
+        lstm_t = cs.cudnn_lstm(torch, wt, bt, D, H, dev)
+        with torch.no_grad():
+            out[f"cudnn1_{tag}"] = cuda_ms(lambda: lstm(x3))
+            if B >= 2048:
+                out[f"cudnn2_{tag}"] = cuda_ms(lambda: (lstm(xn3),
+                                                        lstm_t(xn3)))
+                out[f"cudnn3_{tag}"] = cuda_ms(lambda: (
+                    lstm(x3), lstm(xn3), lstm_t(xn3)))
+
+    scale = load_config(os.path.join(root, "configs", "scale_100v_50r.yaml"))
+    run = dataclasses.replace(scale, time_slots=400)
+    with tempfile.TemporaryDirectory() as wd:
+        carry, _ = runner.train_experiment(run, wd, device=dev, verbose=False)
+    fns = loop.make_train_functions(run, device=dev)
+    draws = loop.Draws(torch.Generator(device=dev).manual_seed(5))
+
+    def event():
+        fns.train_call(carry.learner, carry.replay, run.time_slots - 1, draws)
+
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        event()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["event_100v50r_ms"] = statistics.median(times[1:])
+    _, rows, busy = cs.device_profile(torch, lambda: [event(), event()], 2)
+    out["event_100v50r_busy_ms"] = busy
+    out["event_100v50r_top"] = [
+        (key[:60], ms) for key, ms, _ in sorted(rows, key=lambda r: -r[1])[:4]]
+    return out
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    if argv[:1] == ["--one"]:
+        print("AB " + json.dumps(time_tree(os.path.abspath(argv[1]))),
+              flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    rc = 0
+    for tree in argv:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", tree], capture_output=True, text=True)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
+        if res.returncode or not lines:
+            print(f"chip_ab: {tree} failed (exit {res.returncode}):\n"
+                  f"{res.stderr[-3000:]}", file=sys.stderr)
+            rc = 1
+        for ln in lines:
+            print(ln, flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

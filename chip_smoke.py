@@ -8,10 +8,12 @@ failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of diral_tpu_torch/csrc from the checkout, in
-   parallel, and print the build time;
+   parallel, and print the build time and each kernel's registers, static
+   shared memory and spills (``nvcc -Xptxas -v``);
 3. kernel phases: each serving kernel against its plain PyTorch version
    on the card, at the shapes of the 100v/50r serving path, inputs from a
-   numpy seed -- K1 LSTM window (max |dh| <= 1e-4), K5 channel walk
+   numpy seed -- K1 LSTM window (the K1 class: each |dh| within 1e-4
+   plus one bf16 step, the median below 1e-6), K5 channel walk
    (bit-exact), K6 piggy histogram (bit-exact); K7 lanes histogram
    (bit-exact) at the PPO shape, the toy serving shape, a batch that is
    not a multiple of the TPU pack width and N*N = 121; kernel / plain /
@@ -28,14 +30,18 @@ failure exits non-zero:
    then 20 slots under ``hist_impl="lanes"``: K7 too);
 6. training kernels at the toy (2048 rows, D = 23) and 100v/50r (25,600
    rows, D = 100) train-event shapes, float32 and bfloat16 windows: K2 and
-   K4 bit-equal to K1; K2, K4 within 1e-4 of their plain versions (plus
-   one bf16 step for bf16 outputs); K3 within 1e-3 of the largest plain
-   value for dWx, dWh, db and dx (plus one bf16 step for a bf16 dx), with
-   ``need_dx`` on and off giving bit-equal dW and db and two calls on the
-   same inputs bit-equal -- also at H = 512 (4096 rows, D = 100) and at
-   ragged batches (97 and 2047 rows, D = 23); times against the bound,
-   the plain version and cuDNN's LSTM, and K3's row pass and reduction
-   (partial + combine) device times from torch.profiler;
+   K4 bit-equal to K1; K1, K2, K4 in the K1 class of their plain versions
+   (each |dh| within 1e-4 plus one bf16 step, the median below 1e-6) --
+   the forwards also at ragged batches (97 and 2047 rows, D = 23), H = 128
+   (96 and 2400 rows, D = 25) and H = 512 (4096 rows, D = 100), f32 and
+   bf16, each with its plan (rows per block, blocks, shared memory), and
+   K1 at H = 1024 with K2 and K4 refused there; K3 within 1e-3 of the
+   largest plain value for dWx, dWh, db and dx (plus one bf16 step for a
+   bf16 dx), with ``need_dx`` on and off giving bit-equal dW and db and
+   two calls on the same inputs bit-equal -- also at H = 512 (4096 rows,
+   D = 100) and at ragged batches (97 and 2047 rows, D = 23); times against
+   the bound, the plain version and cuDNN's LSTM, and K3's row pass and
+   reduction (partial + combine) device times from torch.profiler;
 7. learner phase (toy shape): ``train_on_windows`` (K2 + K3) and
    ``train_on_packed`` (K1 + K3 with dx, K4) on one sampled row batch give
    the same loss and step; the card's gradients match the CPU's plain
@@ -65,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -148,6 +155,30 @@ def cudnn_lstm(torch, w, b, D, H, dev):
              torch.zeros(2 * H, device=dev)]))
         lstm.bias_hh_l0.zero_()
     return lstm
+
+
+def ptxas_stats(report):
+    """[(kernel, its registers, static shared memory and spills)] from an
+    ``nvcc -Xptxas -v`` report; kernel names as base<template args>."""
+    out, label, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
+            targs = (mangled.split("_kernelI", 1)[1].split("Ev", 1)[0]
+                     if "_kernelI" in mangled else "")
+            args = re.findall(r"Li(\d+)E", targs)
+            if targs:
+                args.append("bf16" if "bfloat16" in targs else "f32")
+            label = (f"{base.group(1)}<{','.join(args)}>" if base
+                     else mangled)
+        elif label and "spill" in line:
+            spill = line.strip()
+        elif label and "registers" in line:
+            out.append((label, f"{line.split(':', 1)[1].strip()}; {spill}"))
+            label, spill = None, ""
+    return out
 
 
 def bf16_ulp(torch, v):
@@ -246,10 +277,57 @@ def k3_pass_ms(torch, fn, T, B, Dp, H, x_bytes, reps=3):
                               + 4 * (Dp + H + 1) * G, BF16_PEAK)["bound_ms"])
 
 
+def fwd_check(torch, K1, label, x2c, w, b, wt, bt, T, failures):
+    """The forwards on one combined (T+1)-step window: K2 and K4 bit-equal
+    to K1 (steps 0..T-1 and 1..T), and K1, K2 and K4 within the K1 class
+    of their plain versions.  Returns the largest |dh| of each."""
+    D, H = w.shape[0] - w.shape[1] // 4, w.shape[1] // 4
+    B, Dp = x2c.shape[0], K1.padded_dim(D)
+    x2, xn = x2c[:, :T * Dp], x2c[:, Dp:]
+    hs, hna, hnb = K1.lstm_last_flat_triple(x2c, w, b, wt, bt, T)
+    ha, hb = K1.lstm_last_flat_dual(xn, w, b, wt, bt, T)
+    singles = (K1.lstm_last_flat(x2, w, b, T),
+               K1.lstm_last_flat(xn, w, b, T),
+               K1.lstm_last_flat(xn, wt, bt, T))
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in
+               zip((hs, hna, hnb, ha, hb), singles + singles[1:]))
+    plain = K1.lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T)
+    plain = plain + plain[1:]
+    # the K1 class: sum order may flip the bf16 rounding of an
+    # intermediate h, which moves later steps by up to |w| * 2^-8 * |h|
+    # -- at 25,600 rows such a flip reaches past 1e-4 in float32 -- so
+    # each value may be 1e-4 plus one bf16 step of it apart (phase 3's
+    # rule for K1 too), and the median gap must stay below 1e-6
+    err, ok = {"K1": 0.0, "K2": 0.0, "K4": 0.0}, True
+    for k, got, want in zip(("K2",) * 3 + ("K4",) * 2 + ("K1",) * 3,
+                            (hs, hna, hnb, ha, hb) + singles,
+                            plain + plain[:3]):
+        got, want = got.float(), want.float()
+        gap = (got - want).abs()
+        err[k] = max(err[k], float(gap.max()))
+        ok &= bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
+        ok &= float(gap.median()) < 1e-6
+    plans = "; ".join(
+        f"{k} {p.bm} rows x {p.blocks} blocks, {p.smem} B shared"
+        for k, p in (("K1", K1._fwd_plan(B, Dp, H, 1)),
+                     ("K4", K1._fwd_plan(B, Dp, H, 2)),
+                     ("K2", K1._fwd_plan(B, Dp, H, 3))))
+    log(f"forwards {label}: B={B} T={T} D={D} H={H} ({plans}); K2/K4 vs K1 "
+        f"{'bit-equal' if same else 'FAIL'}; vs plain max|dh| K1="
+        f"{err['K1']:.3e} K2={err['K2']:.3e} K4={err['K4']:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    for bad, what in ((not same, "bit-equal to K1"), (not ok, "vs plain")):
+        if bad:
+            failures.append(f"forwards {label}: {what}")
+    return err
+
+
 def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
-    """Phase 6: K2, K3 and K4 against K1 and their plain versions, K3 also
-    at H = 512 and at ragged batches; returns the kernel rows (times at
-    the 100v/50r train-event shape)."""
+    """Phase 6: K2, K3 and K4 against K1 and their plain versions, the
+    forwards also at ragged batches, H = 128 and H = 512, K3 also at H =
+    512 and at ragged batches; returns the kernel rows (times at the
+    100v/50r train-event shape)."""
     T, H = 6, 256
     rows = {}
     for label, B, D, dtype in (
@@ -261,39 +339,7 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
         x2c, w, b, wt, bt, g = lstm_train_inputs(torch, np, K1, dev, B, D, H,
                                                  T + 1, 7, dtype)
         x2, xn = x2c[:, :T * Dp], x2c[:, Dp:]
-        hs, hna, hnb = K1.lstm_last_flat_triple(x2c, w, b, wt, bt, T)
-        ha, hb = K1.lstm_last_flat_dual(xn, w, b, wt, bt, T)
-        singles = (K1.lstm_last_flat(x2, w, b, T),
-                   K1.lstm_last_flat(xn, w, b, T),
-                   K1.lstm_last_flat(xn, wt, bt, T))
-        torch.cuda.synchronize()
-        same = all(torch.equal(p, q) for p, q in
-                   zip((hs, hna, hnb, ha, hb), singles + singles[1:]))
-        plain = (K1.lstm_last_flat_triple_plain(x2c, w, b, wt, bt, T)
-                 + K1.lstm_last_flat_dual_plain(xn, w, b, wt, bt, T))
-        # the K1 class: sum order may flip the bf16 rounding of an
-        # intermediate h, which moves later steps by up to |w| * 2^-8 * |h|
-        # -- at 25,600 rows such a flip reaches past 1e-4 in float32 -- so
-        # each value may be 1e-4 plus one bf16 step of it apart (the K1
-        # phase's rule for bf16 windows), and the median gap must stay
-        # below 1e-6
-        err_h, ok_h = {"K2": 0.0, "K4": 0.0}, True
-        for k, got, want in zip(("K2",) * 3 + ("K4",) * 2,
-                                (hs, hna, hnb, ha, hb), plain):
-            got, want = got.float(), want.float()
-            gap = (got - want).abs()
-            err_h[k] = max(err_h[k], float(gap.max()))
-            ok_h &= bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
-            ok_h &= float(gap.median()) < 1e-6
-
-        log(f"train kernels {label}: B={B} T={T} D={D} H={H}; K2/K4 vs K1 "
-            f"{'bit-equal' if same else 'FAIL'}; vs plain max|dh| K2="
-            f"{err_h['K2']:.3e} K4={err_h['K4']:.3e} "
-            f"{'ok' if ok_h else 'FAIL'}")
-        for bad, what in ((not same, "bit-equal to K1"),
-                          (not ok_h, "vs plain")):
-            if bad:
-                failures.append(f"train kernels {label}: {what}")
+        err_h = fwd_check(torch, K1, label, x2c, w, b, wt, bt, T, failures)
         rel, _, abs_g = k3_check(torch, K1, label, x2, w, b, g, T, D,
                                  failures)
         if dtype != torch.float32:
@@ -357,6 +403,43 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
             replaces="diral_tpu/ops/pallas_lstm.py:255",
             max_abs_err=err_h["K4"],
             ms=t4, plain_ms=p4, library_ms=lib4, **bound(f4, b4, BF16_PEAK))
+
+    # the forwards at ragged batches, H = 128 and H = 512, f32 and bf16
+    for label, B, D, Hs in (("ragged 97", 97, 23, 256),
+                            ("ragged 2047", 2047, 23, 256),
+                            ("H=128 96", 96, 25, 128),
+                            ("H=128 2400", 2400, 25, 128),
+                            ("H=512", 4096, 100, 512)):
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x2c, w, b, wt, bt, _ = lstm_train_inputs(torch, np, K1, dev, B, D,
+                                                     Hs, T + 1, 9, dtype)
+            fwd_check(torch, K1, f"{label} {name}", x2c, w, b, wt, bt, T,
+                      failures)
+
+    # H = 1024: K1 has a plan (16-row tiles), K2 and K4 are refused
+    x2c, w, b, wt, bt, _ = lstm_train_inputs(torch, np, K1, dev, 512, 23,
+                                             1024, T + 1, 10, torch.float32)
+    x2 = x2c[:, :T * K1.padded_dim(23)]
+    got = K1.lstm_last_flat(x2, w, b, T)
+    want = K1.lstm_last_flat_plain(x2, w, b, T)
+    torch.cuda.synchronize()
+    gap = (got - want).abs()
+    ok = bool((gap <= 1e-4 + bf16_ulp(torch, want)).all()
+              and float(gap.median()) < 1e-6)
+    refused = []
+    for name, call in (("K2", lambda: K1.lstm_last_flat_triple(
+            x2c, w, b, wt, bt, T)), ("K4", lambda: K1.lstm_last_flat_dual(
+                x2c[:, K1.padded_dim(23):], w, b, wt, bt, T))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(name if "no tensor-core forward tile" in str(e)
+                           else f"{name} ({e})")
+    ok &= refused == ["K2", "K4"]
+    log(f"forwards H=1024 (512 rows, D=23): K1 vs plain max|dh| "
+        f"{float(gap.max()):.3e}; refused {refused} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("forwards H=1024")
 
     # K3 alone at H = 512 and at batches that cut into ragged chunks
     for label, B, D, H in (("H=512", 4096, 100, 512), ("ragged 97", 97, 23, 256),
@@ -720,9 +803,8 @@ def main() -> int:
     reports = _build.build_all()
     log(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, rep in sorted(reports.items()):
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for label, stats in ptxas_stats(rep):
+            log(f"  {name} {label}: {stats}")
 
     def cuda_ms(fn, reps=7, warmup=2):
         for _ in range(warmup):
@@ -762,16 +844,16 @@ def main() -> int:
         got = K1.lstm_last_flat(x2, w, b, T).float()
         want = K1.lstm_last_flat_plain(x2, w, b, T).float()
         torch.cuda.synchronize()
-        errs[label] = err = float((got - want).abs().max())
-        if dtype == torch.bfloat16:
-            # both round h to bf16 at the end: two float32 values 1e-4 apart
-            # may land one bf16 step apart
-            ok = bool(((got - want).abs() <= 1e-4 + bf16_ulp(torch, want))
-                      .all())
-        else:
-            ok = err <= 1e-4
-        log(f"K1 {label}: B={B} T={T} D={D} H={H} max|dh|={err:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+        gap = (got - want).abs()
+        errs[label] = err = float(gap.max())
+        # the K1 class (phase 6's rule): each value within 1e-4 plus one
+        # bf16 step of it -- a bf16 output, or an intermediate h whose
+        # rounding the sum order flipped, lands one step apart -- and the
+        # median gap below 1e-6
+        ok = (bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
+              and float(gap.median()) < 1e-6)
+        log(f"K1 {label}: B={B} T={T} D={D} H={H} max|dh|={err:.3e} median "
+            f"{float(gap.median()):.1e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"K1 {label}")
     k1_err = errs["scale f32"]   # the main path's shape and type

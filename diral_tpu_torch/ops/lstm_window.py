@@ -32,10 +32,24 @@ kernel or raise.  Each wrapper's ``launches`` counts kernel launches (a K3
 call counts once, though it is three launches: the row pass, then the
 dW/db reduction as a split-K partial pass and an in-order combine).
 
+The forwards (K1, K4, K2) share one tensor-core step: per step the gate
+sums [x_t | h] @ W run on ``mma.sync`` bf16 tiles in one fixed k order,
+so K4 equals two K1 calls and K2 equals K1 and K4 bit for bit.  Two host
+pieces feed them, both functions of the shape alone and CPU-tested
+(tests/test_torch_lstm_fwd_plan.py): ``_fwd_plan`` picks the rows of a
+block (16, 32 or 64) that fit 227 KB of shared memory and fill the
+H100's 132 SMs where B allows, and refuses a shape that no tile fits (K2
+and K4 at H = 1024); ``_fragments`` permutes each net's packed bf16
+weights into the order of the mma B fragments, so each warp streams its
+units' weights from L2 with 16-byte loads.
+
 K3's reduction cuts the T*B rows into S chunks by ``_reduce_plan``, a
 function of the shape alone (never of the card), so dW and db are the
 same bits on any card; the wrapper allocates the float32 partials
 [S, Dp+H+1, 4H] (the last row holds db's) with the rest of the scratch.
+K3's row pass still recomputes the forward on the CUDA cores (float32
+FMAs in the same k order), so its activations match the forwards' output
+to the K1 precision class, not bit for bit.
 """
 
 from __future__ import annotations
@@ -251,8 +265,71 @@ def _check_cuda(name, x2, steps: int, *params):
 
 
 def _packed(w, D: int, Dp: int):
-    """The kernels' weight layout: [Wx padded to Dp rows; Wh] in bf16."""
+    """K3's weight layout: [Wx padded to Dp rows; Wh] in bf16."""
     return torch.cat(_split_weights(w, D, Dp), dim=0).contiguous()
+
+
+def _fragments(w, D: int, Dp: int):
+    """The forwards' weight layout: ``_packed`` [K = Dp+H, 4H] permuted into
+    the order of mma.sync m16n8k16 B fragments, a contiguous tensor whose
+    memory is [H/8 chunks uc, K/16 k tiles kt, 2, 32 lanes, 8]: lane
+    l = 4*g + tig holds, as two 16-byte words, gates (i, g) then (f, o)
+    of column q*H + 8*uc + g at rows 16*kt + 2*tig + (0, 1, 8, 9) -- the
+    B registers {b0, b1}, {b2, b3} of each gate's n8 tile.  A permutation
+    of the packed weights."""
+    wpk = _packed(w, D, Dp)
+    K, G = wpk.shape
+    H = G // 4
+    # k = 16*kt + 8*khalf + 2*tig + pair; n = H*(2*qh + ql) + 8*uc + g
+    v = wpk.reshape(K // 16, 2, 4, 2, 2, 2, H // 8, 8)
+    return v.permute(6, 0, 4, 7, 2, 5, 1, 3).contiguous()
+
+
+# The forwards' plan: blocks of 16 warps (512 threads, so at most 128
+# registers a thread) over _FWD_ROWS rows; at most _FWD_MAX_MTILES m16
+# row tiles in one product (per tile a thread holds 16 accumulator
+# floats and 4 A-fragment registers); _FWD_SMEM bytes of shared memory a
+# block may use and _FWD_SMS SMs to fill (the H100's); shared rows
+# padded by _FWD_PAD bf16.
+_FWD_ROWS = (64, 32, 16)
+_FWD_MAX_MTILES = 4
+_FWD_SMEM = 232_448
+_FWD_SMS = 132
+_FWD_PAD = 8
+
+
+class FwdPlan(NamedTuple):
+    """A forward launch: ``bm`` rows a block, ``blocks`` blocks, ``smem``
+    bytes of dynamic shared memory a block."""
+    bm: int
+    blocks: int
+    smem: int
+
+
+def _fwd_smem(bm: int, Dp: int, H: int, recs: int) -> int:
+    """Shared memory of a forward block (csrc fwd_smem_bytes): the bf16 x
+    tile [2][bm][Dp+pad] and, per recurrence, bf16 h [2][bm][H+pad] and
+    float32 c [bm][H]."""
+    return 4 * bm * (Dp + _FWD_PAD) + recs * bm * (4 * (H + _FWD_PAD) + 4 * H)
+
+
+def _fwd_plan(B: int, Dp: int, H: int, recs: int) -> FwdPlan:
+    """The forward plan for the shape alone: ``recs`` recurrences a block
+    (K1 1, K4 2, K2 3 -- K2 stacks two of them as 2*bm rows of one
+    product).  The largest row tile that fits shared memory and the
+    accumulator and still gives >= ``_FWD_SMS`` blocks, else the smallest
+    that fits; ValueError where none fits."""
+    stack = 2 if recs == 3 else 1
+    fits = [bm for bm in _FWD_ROWS
+            if stack * bm // 16 <= _FWD_MAX_MTILES
+            and _fwd_smem(bm, Dp, H, recs) <= _FWD_SMEM]
+    if not fits:
+        raise ValueError(
+            f"no tensor-core forward tile fits H={H}, Dp={Dp} with {recs} "
+            f"recurrence(s): {_fwd_smem(16, Dp, H, recs)} bytes of shared "
+            f"memory at 16 rows, over {_FWD_SMEM}")
+    bm = next((bm for bm in fits if -(-B // bm) >= _FWD_SMS), fits[-1])
+    return FwdPlan(bm, -(-B // bm), _fwd_smem(bm, Dp, H, recs))
 
 
 def _bias(b):
@@ -266,30 +343,44 @@ def _library():
 
 
 def _launch(lib, symbol, argtypes, x2, *args):
-    _build.launch(lib, symbol, argtypes + [_INT] * 5, x2.device, *args,
+    """Launch ``symbol``: ``argtypes`` declares the leading arguments, the
+    rest of ``args`` are ints, then x2's type flag."""
+    ints = [_INT] * (len(args) - len(argtypes) + 1)
+    _build.launch(lib, symbol, argtypes + ints, x2.device, *args,
                   int(x2.dtype == torch.bfloat16))
 
 
+def _fwd_check(name, x2, steps: int, recs: int, *params):
+    """``_check_cuda`` and the forward plan: (D, H, Dp, plan)."""
+    D, H, Dp = _check_cuda(name, x2, steps, *params)
+    try:
+        plan = _fwd_plan(x2.shape[0], Dp, H, recs)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return D, H, Dp, plan
+
+
 def _k1(x2, w, b, T: int):
-    D, H, Dp = _check_cuda("lstm_last_flat", x2, T, w, b)
+    D, H, Dp, plan = _fwd_check("lstm_last_flat", x2, T, 1, w, b)
     lib = _library()
     out = torch.empty((x2.shape[0], H), dtype=x2.dtype, device=x2.device)
     _launch(lib, "lstm_window_launch", [_PTR, _INT, _PTR, _PTR, _PTR], x2,
-            x2, x2.stride(0), _packed(w, D, Dp), _bias(b), out,
-            x2.shape[0], T, Dp, H)
+            x2, x2.stride(0), _fragments(w, D, Dp), _bias(b), out,
+            x2.shape[0], T, Dp, H, plan.bm)
     lstm_last_flat.launches += 1
     return out
 
 
 def _k2(x2c, w, b, wt, bt, T: int):
-    D, H, Dp = _check_cuda("lstm_last_flat_triple", x2c, T + 1,
-                           w, b, wt, bt)
+    D, H, Dp, plan = _fwd_check("lstm_last_flat_triple", x2c, T + 1, 3,
+                                w, b, wt, bt)
     lib = _library()
     outs = [torch.empty((x2c.shape[0], H), dtype=x2c.dtype,
                         device=x2c.device) for _ in range(3)]
     _launch(lib, "lstm_triple_launch", [_PTR, _INT] + [_PTR] * 7, x2c,
-            x2c, x2c.stride(0), _packed(w, D, Dp), _bias(b),
-            _packed(wt, D, Dp), _bias(bt), *outs, x2c.shape[0], T, Dp, H)
+            x2c, x2c.stride(0), _fragments(w, D, Dp), _bias(b),
+            _fragments(wt, D, Dp), _bias(bt), *outs, x2c.shape[0], T, Dp, H,
+            plan.bm)
     lstm_last_flat_triple.launches += 1
     return tuple(outs)
 
@@ -465,14 +556,15 @@ def lstm_last_flat_dual(x2, wa, ba, wb, bb, T: int):
     with torch.no_grad():
         if _on_cpu(x2):
             return lstm_last_flat_dual_plain(x2, wa, ba, wb, bb, T)
-        D, H, Dp = _check_cuda("lstm_last_flat_dual", x2, T,
-                               wa, ba, wb, bb)
+        D, H, Dp, plan = _fwd_check("lstm_last_flat_dual", x2, T, 2,
+                                    wa, ba, wb, bb)
         lib = _library()
         ha, hb = (torch.empty((x2.shape[0], H), dtype=x2.dtype,
                               device=x2.device) for _ in range(2))
         _launch(lib, "lstm_dual_launch", [_PTR, _INT] + [_PTR] * 6, x2,
-                x2, x2.stride(0), _packed(wa, D, Dp), _bias(ba),
-                _packed(wb, D, Dp), _bias(bb), ha, hb, x2.shape[0], T, Dp, H)
+                x2, x2.stride(0), _fragments(wa, D, Dp), _bias(ba),
+                _fragments(wb, D, Dp), _bias(bb), ha, hb, x2.shape[0], T, Dp,
+                H, plan.bm)
         lstm_last_flat_dual.launches += 1
         return ha, hb
 

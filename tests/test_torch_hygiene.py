@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port.
 
 * Import hygiene: importing diral_tpu_torch and every submodule loads no
-  JAX-family module and no module of diral_tpu; chip_smoke.py imports
-  neither.
+  JAX-family module and no module of diral_tpu; chip_smoke.py and
+  chip_ab.py import neither.
 * Device default: entry points run on CUDA unless asked for the CPU, and
   raise without a GPU; a kernel wrapper given a non-CPU tensor it cannot
   launch on raises and never runs its plain version.
@@ -59,7 +59,7 @@ def test_package_imports_no_jax():
 
 
 @pytest.mark.parametrize("path", [
-    "chip_smoke.py",
+    "chip_smoke.py", "chip_ab.py",
     *sorted(os.path.relpath(os.path.join(d, f), ROOT)
             for d, _, fs in os.walk(os.path.join(ROOT, "diral_tpu_torch"))
             for f in fs if f.endswith(".py"))])
