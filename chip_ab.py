@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the LSTM forward kernels of several checkouts on the card, one
+"""Times the LSTM window kernels of several checkouts on the card, one
 process each, to compare two commits within one call.
 
     python3 chip_ab.py TREE [TREE ...]
@@ -14,8 +14,11 @@ torch.profiler device times of K1 at the serving shape (1600 rows, D =
 100), the PPO update shape (2400 rows, D = 25, H = 128) and the toy and
 100v/50r train-event shapes (2048 rows, D = 23; 25,600 rows, D = 100),
 of K2 and K4 at the last two, cuDNN's LSTM forwards beside each
-(``cudnn1`` / ``cudnn2`` / ``cudnn3``: one, two or three forwards), and
-the 100v/50r train event after 400 slots of training (host clock, median
+(``cudnn1`` / ``cudnn2`` / ``cudnn3``: one, two or three forwards); K3
+(``lstm_window_bwd``) at the last three without and with dx (``K3`` /
+``K3dx``), its row pass's and its reduction's (partial + combine) device
+times without dx (``K3rows`` / ``K3red``) and cuDNN's forward + grad of
+the weights (``cudnn_grad``); and the 100v/50r train event after 400 slots of training (host clock, median
 of 5 after a warm one) with its device busy time.  Needs one CUDA device
 and nvcc; imports nothing of JAX.
 """
@@ -67,17 +70,21 @@ def time_tree(root: str) -> dict:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device_ms(fn, kernel, reps=5):
+    def device_ms(fn, kernels, reps=5):
+        """Device ms per call of the kernels whose names hold one of
+        ``kernels`` (a name or a tuple of names)."""
+        kernels = (kernels,) if isinstance(kernels, str) else kernels
         fn()
         torch.cuda.synchronize()
         _, rows, _ = cs.device_profile(
             torch, lambda: [fn() for _ in range(reps)], reps)
-        return sum(ms for key, ms, _ in rows if kernel in key)
+        return sum(ms for key, ms, _ in rows
+                   if any(k in key for k in kernels))
 
     out = {"tree": os.path.basename(os.path.normpath(root))}
     for tag, B, D, H in SHAPES:
         Dp = K1.padded_dim(D)
-        x2c, w, b, wt, bt, _ = cs.lstm_train_inputs(
+        x2c, w, b, wt, bt, g = cs.lstm_train_inputs(
             torch, np, K1, dev, B, D, H, T + 1, 7, torch.float32)
         x2, xn = x2c[:, :T * Dp].contiguous(), x2c[:, Dp:]
         calls = {"K1": (lambda: K1.lstm_last_flat(x2, w, b, T),
@@ -102,6 +109,18 @@ def time_tree(root: str) -> dict:
                                                         lstm_t(xn3)))
                 out[f"cudnn3_{tag}"] = cuda_ms(lambda: (
                     lstm(x3), lstm(xn3), lstm_t(xn3)))
+        if B >= 2048 or H == 128:   # K3's shapes
+            def k3(need_dx):
+                return lambda: K1.lstm_window_bwd(x2, w, b, g, T, need_dx)
+
+            out[f"K3_{tag}"] = cuda_ms(k3(False))
+            out[f"K3dx_{tag}"] = cuda_ms(k3(True))
+            out[f"K3rows_{tag}"] = device_ms(k3(False), "lstm_bwd_rows")
+            out[f"K3red_{tag}"] = device_ms(
+                k3(False), ("lstm_bwd_partial", "lstm_bwd_combine"))
+            params = [p.requires_grad_() for p in lstm.parameters()]
+            out[f"cudnn_grad_{tag}"] = cuda_ms(lambda: torch.autograd.grad(
+                lstm(x3)[0][:, -1], params, grad_outputs=g))
 
     scale = load_config(os.path.join(root, "configs", "scale_100v_50r.yaml"))
     run = dataclasses.replace(scale, time_slots=400)

@@ -37,13 +37,15 @@ failure exits non-zero:
    bf16, each with its plan (rows per block, blocks, shared memory), and
    K1 at H = 1024 with K2 and K4 refused there; K3 within 1e-3 of the
    largest plain value for dWx, dWh, db and dx (plus one bf16 step for a
-   bf16 dx), with ``need_dx`` on and off giving bit-equal dW and db and
-   two calls on the same inputs bit-equal -- also at H = 512 (4096 rows,
-   D = 100) and at ragged batches (97 and 2047 rows, D = 23); times against
-   the bound, the plain version and cuDNN's LSTM, and K3's row pass and
-   reduction (partial + combine) device times from torch.profiler;
+   bf16 dx), with ``need_dx`` on and off giving bit-equal dW and db, two
+   calls on the same inputs bit-equal and the row pass's bf16 h stash
+   bit-equal to K1's forward after t steps -- also at H = 512 (4096 rows,
+   D = 100), H = 1024 (512 rows, D = 23) and at ragged batches (97 and
+   2047 rows, D = 23); times against the bound, the plain version and
+   cuDNN's LSTM, and K3's row pass and reduction (partial + combine)
+   device times from torch.profiler, each beside its own bound;
 7. learner phase (toy shape): ``train_on_windows`` (K2 + K3) and
-   ``train_on_packed`` (K1 + K3 with dx, K4) on one sampled row batch give
+   ``train_on_packed`` (K1 + K3, K4) on one sampled row batch give
    the same loss and step; the card's gradients match the CPU's plain
    versions within 1e-3 of the largest;
 8. training slice: ``train_experiment`` on the toy config (1500 slots) and
@@ -233,47 +235,69 @@ def k3_gaps(torch, grads, plain, D):
 
 def k3_check(torch, K1, label, x2, w, b, g, T, D, failures):
     """K3 against its plain version (``k3_gaps``), dW and db bit-equal with
-    ``need_dx`` on and off, and every output bit-equal across two calls
-    on the same inputs.  Returns (rel, ok, abs_g) of ``k3_gaps``."""
+    ``need_dx`` on and off, every output bit-equal across two calls on the
+    same inputs, and the row pass's bf16 h stash at step t bit-equal to
+    K1's forward over the first t steps, rounded to bf16 (zero at t = 0).
+    Returns (rel, ok, abs_g) of ``k3_gaps``."""
     grads = K1.lstm_window_bwd(x2, w, b, g, T, True)
     again = K1.lstm_window_bwd(x2, w, b, g, T, True)
     no_dx = K1.lstm_window_bwd(x2, w, b, g, T, False)
     plain = K1.lstm_window_bwd_plain(x2, w, b, g, T, True)
+    hstash = K1._k3_launch(x2, w, b, g, T, True)[3]
+    Dp = K1.padded_dim(D)
+    stash = [torch.zeros_like(hstash[0])] + [
+        K1.lstm_last_flat(x2[:, :t * Dp], w, b, t).to(torch.bfloat16)
+        for t in range(1, T)]
     torch.cuda.synchronize()
     rel, ok, abs_g = k3_gaps(torch, grads, plain, D)
     modes = (torch.equal(grads[1], no_dx[1])
              and torch.equal(grads[2], no_dx[2]))
     repeat = all(torch.equal(p, q) for p, q in zip(grads, again))
+    same_h = all(torch.equal(hstash[t], stash[t]) for t in range(T))
     B, H = x2.shape[0], w.shape[1] // 4
-    S = K1._reduce_plan(B, T, K1.padded_dim(D), H).splits
-    log(f"K3 {label}: B={B} T={T} D={D} H={H} S={S}; vs plain rel "
+    S = K1._reduce_plan(B, T, Dp, H).splits
+    plan = K1._bwd_plan(B, Dp, H)
+    log(f"K3 {label}: B={B} T={T} D={D} H={H} S={S}, row pass {plan.bm} "
+        f"rows x {plan.blocks} blocks, {plan.smem} B shared; vs plain rel "
         + " ".join(f"{k}={v:.2e}" for k, v in rel.items())
         + f" {'ok' if ok else 'FAIL'}; need_dx on/off dW, db "
         f"{'bit-equal' if modes else 'FAIL'}; two calls "
-        f"{'bit-equal' if repeat else 'FAIL'}")
+        f"{'bit-equal' if repeat else 'FAIL'}; h stash vs K1 "
+        f"{'bit-equal' if same_h else 'FAIL'}")
     for bad, what in ((not ok, "vs plain"), (not modes, "need_dx modes"),
-                      (not repeat, "two calls differ")):
+                      (not repeat, "two calls differ"),
+                      (not same_h, "h stash vs K1")):
         if bad:
             failures.append(f"K3 {label}: {what}")
     return rel, ok, abs_g
 
 
-def k3_pass_ms(torch, fn, T, B, Dp, H, x_bytes, reps=3):
+def k3_pass_ms(torch, K1, x2, w, b, g, T, need_dx, reps=3):
     """K3's two phases on the card under torch.profiler, device ms per
-    call: the row pass and the reduction (partial + combine passes), and
-    the reduction's own bound: its products at the bf16 peak, or its
-    bytes -- the float32 dgates scratch, the window (``x_bytes`` an
-    element) and the bf16 h stash read once, dW and db written once."""
+    call -- the row pass and the reduction (partial + combine passes) --
+    each beside its own bound, its products at the bf16 peak or its bytes
+    at 3.35 TB/s, whichever is larger.  The row pass: the recompute
+    forward, dh and (``need_dx``) dx products; the window, the cotangent
+    and the weights read once, the float32 dgates, the bf16 h stash and dx
+    written once.  The reduction: the dgates, the window and the stash
+    read once, dW and db written once."""
     torch.cuda.synchronize()
-    _, prow, _ = device_profile(torch, lambda: [fn() for _ in range(reps)],
-                                reps)
+    _, prow, _ = device_profile(
+        torch, lambda: [K1.lstm_window_bwd(x2, w, b, g, T, need_dx)
+                        for _ in range(reps)], reps)
+    B, H = x2.shape[0], w.shape[1] // 4
+    Dp, xb = x2.shape[1] // T, x2.element_size()
     R, G = T * B, 4 * H
     return dict(
         rows_ms=sum(ms for k, ms, _ in prow if "lstm_bwd_rows" in k),
         reduce_ms=sum(ms for k, ms, _ in prow
                       if "lstm_bwd_partial" in k or "lstm_bwd_combine" in k),
+        rows_bound_ms=bound(
+            2.0 * R * G * (Dp + 2 * H + (Dp if need_dx else 0)),
+            R * (xb * Dp * (2 if need_dx else 1) + 4 * G + 2 * H)
+            + xb * B * H + 2 * (Dp + H) * G + 4 * G, BF16_PEAK)["bound_ms"],
         reduce_bound_ms=bound(2.0 * R * (Dp + H) * G,
-                              R * (4 * G + x_bytes * Dp + 2 * H)
+                              R * (4 * G + xb * Dp + 2 * H)
                               + 4 * (Dp + H + 1) * G, BF16_PEAK)["bound_ms"])
 
 
@@ -365,9 +389,7 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
         t3 = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, False))
         t3dx = cuda_ms(lambda: K1.lstm_window_bwd(x2, w, b, g, T, True))
         p3 = cuda_ms(lambda: K1.lstm_window_bwd_plain(x2, w, b, g, T, False))
-        passes = k3_pass_ms(torch, lambda: K1.lstm_window_bwd(x2, w, b, g, T,
-                                                              False),
-                            T, B, Dp, H, 4)
+        passes = k3_pass_ms(torch, K1, x2, w, b, g, T, False)
         G4 = 4 * H
         wbytes = 4 * (w.numel() + b.numel())
         f2 = 2.0 * B * G4 * ((T + 1) * D + 2 * T * H + T * (D + H))
@@ -380,8 +402,9 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
             f"3 cuDNN forwards {lib2:.4f}); K4 {t4:.4f} ms (plain {p4:.4f}, "
             f"2 cuDNN forwards {lib4:.4f}); K3 {t3:.4f} ms, with dx "
             f"{t3dx:.4f} (plain {p3:.4f}, cuDNN forward + grad {lib3:.4f}); "
-            f"K3 device ms per call: row pass {passes['rows_ms']:.4f}, "
-            f"reduction {passes['reduce_ms']:.4f} (its bound "
+            f"K3 device ms per call: row pass {passes['rows_ms']:.4f} (its "
+            f"bound {passes['rows_bound_ms']:.4f}), reduction "
+            f"{passes['reduce_ms']:.4f} (its bound "
             f"{passes['reduce_bound_ms']:.4f})")
         if label != "scale f32":
             continue
@@ -441,8 +464,11 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
     if not ok:
         failures.append("forwards H=1024")
 
-    # K3 alone at H = 512 and at batches that cut into ragged chunks
-    for label, B, D, H in (("H=512", 4096, 100, 512), ("ragged 97", 97, 23, 256),
+    # K3 alone at H = 512, H = 1024 and at batches that cut into ragged
+    # chunks
+    for label, B, D, H in (("H=512", 4096, 100, 512),
+                           ("H=1024", 512, 23, 1024),
+                           ("ragged 97", 97, 23, 256),
                            ("ragged 2047", 2047, 23, 256)):
         x2, w, b, _, _, g = lstm_train_inputs(torch, np, K1, dev, B, D, H, T,
                                               8, torch.float32)
@@ -451,7 +477,8 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
 
 
 def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
-    """K1 and K3 (with dx, as the PPO encoders' backward) at the PPO
+    """K1 and K3 (with dx, the most a PPO encoder's backward can ask: its
+    windows need no gradient, so the PPO run's K3 calls skip dx) at the PPO
     path's shapes, float32: T = 6, D = 25, H = 128 over 96 rows (an actor
     step: 16 envs x 6 vehicles) and 2400 rows (an update: 25 slots x 96).
     Each against its plain version -- K1 within 1e-4, K3 as ``k3_check``
@@ -498,8 +525,7 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
         rows=B, H=H, need_dx=True, max_abs_err=err3, max_rel_err=rel3,
         ms=t3, plain_ms=p3, library_ms=lib3,
         splits=K1._reduce_plan(B, T, Dp, H).splits,
-        **k3_pass_ms(torch, lambda: K1.lstm_window_bwd(x2, w, b, g, T, True),
-                     T, B, Dp, H, 4),
+        **k3_pass_ms(torch, K1, x2, w, b, g, T, True),
         **bound(2.0 * B * G4 * (2 * T * (D + H) + T * H + T * D),
                 4 * (2 * B * T * Dp + B * H) + wbytes
                 + 4 * ((D + H) * G4 + G4), BF16_PEAK))
@@ -509,8 +535,9 @@ def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  cuDNN "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})" + (
-                f"; device ms per call: row pass {r['rows_ms']:.4f}, "
-                f"reduction {r['reduce_ms']:.4f} (its bound "
+                f"; device ms per call: row pass {r['rows_ms']:.4f} (its "
+                f"bound {r['rows_bound_ms']:.5f}), reduction "
+                f"{r['reduce_ms']:.4f} (its bound "
                 f"{r['reduce_bound_ms']:.5f})" if k == "K3" else ""))
 
 

@@ -47,9 +47,13 @@ K3's reduction cuts the T*B rows into S chunks by ``_reduce_plan``, a
 function of the shape alone (never of the card), so dW and db are the
 same bits on any card; the wrapper allocates the float32 partials
 [S, Dp+H+1, 4H] (the last row holds db's) with the rest of the scratch.
-K3's row pass still recomputes the forward on the CUDA cores (float32
-FMAs in the same k order), so its activations match the forwards' output
-to the K1 precision class, not bit for bit.
+K3's row pass recomputes the forward with the forwards' tensor-core step,
+so its activations and its bf16 h stash equal K1's forward bit for bit,
+and forms dh = bf16(dgates) @ Wh^T and dx = bf16(dgates) @ Wx^T on
+``mma.sync`` tiles too, against the packed weights that
+``_bwd_fragments`` permutes into B-fragment order; ``_bwd_plan`` (shape
+only, CPU-tested in tests/test_torch_k3_rows_plan.py) picks its row
+tile.
 """
 
 from __future__ import annotations
@@ -285,6 +289,24 @@ def _fragments(w, D: int, Dp: int):
     return v.permute(6, 0, 4, 7, 2, 5, 1, 3).contiguous()
 
 
+def _bwd_fragments(w, D: int, Dp: int):
+    """K3's row-pass weight layout for dh = A @ Wh^T and dx = A @ Wx^T
+    (A: bf16 dgates [rows, 4H]): ``_packed`` P [Dp+H, 4H] read as the
+    col-major B [K = 4H, N = Dp+H] of those products and permuted into
+    mma.sync m16n8k16 B-fragment order, a contiguous tensor whose memory
+    is [(Dp+H)/8 n tiles nt, H/8 k pairs kp, 32 lanes, 8]: lane
+    l = 4*g + tig holds, as one 16-byte word, P[8*nt + g, k] at
+    k = 32*kp + 16*j + 8*khalf + 2*tig + pair in position
+    4*j + 2*khalf + pair -- the B registers {b0, b1}, {b2, b3} of k tiles
+    2*kp and 2*kp + 1.  n tiles 0..Dp/8-1 are Wx, the rest Wh.  A
+    permutation of the packed weights."""
+    wpk = _packed(w, D, Dp)
+    N, K = wpk.shape
+    # n = 8*nt + g; k = 32*kp + 16*j + 8*khalf + 2*tig + pair
+    v = wpk.reshape(N // 8, 8, K // 32, 2, 2, 4, 2)
+    return v.permute(0, 2, 1, 5, 3, 4, 6).contiguous()
+
+
 # The forwards' plan: blocks of 16 warps (512 threads, so at most 128
 # registers a thread) over _FWD_ROWS rows; at most _FWD_MAX_MTILES m16
 # row tiles in one product (per tile a thread holds 16 accumulator
@@ -330,6 +352,43 @@ def _fwd_plan(B: int, Dp: int, H: int, recs: int) -> FwdPlan:
             f"memory at 16 rows, over {_FWD_SMEM}")
     bm = next((bm for bm in fits if -(-B // bm) >= _FWD_SMS), fits[-1])
     return FwdPlan(bm, -(-B // bm), _fwd_smem(bm, Dp, H, recs))
+
+
+# K3's row pass: the forwards' blocks of 16 warps over _BWD_ROWS rows
+# (at most 2 m16 tiles: the recompute forward also keeps each cell's four
+# activations in registers), within the same shared memory and SMs.
+_BWD_ROWS = (32, 16)
+
+
+class BwdPlan(NamedTuple):
+    """K3's row-pass launch: ``bm`` rows a block, ``blocks`` blocks,
+    ``smem`` bytes of dynamic shared memory a block."""
+    bm: int
+    blocks: int
+    smem: int
+
+
+def _bwd_smem(bm: int, Dp: int, H: int) -> int:
+    """Shared memory of a row-pass block (csrc rows_smem_bytes): the
+    forward sweep's (``_fwd_smem``, one recurrence), reused by the
+    backward sweep for the bf16 A tile [bm][4H+pad] and float32 dh
+    [bm][H]."""
+    return max(_fwd_smem(bm, Dp, H, 1),
+               2 * bm * (4 * H + _FWD_PAD) + 4 * bm * H)
+
+
+def _bwd_plan(B: int, Dp: int, H: int) -> BwdPlan:
+    """K3's row-pass plan for the shape alone (T does not enter: the c
+    history lives in device scratch).  The largest row tile that fits
+    and still gives >= ``_FWD_SMS`` blocks, else the smallest that fits;
+    ValueError where none fits."""
+    fits = [bm for bm in _BWD_ROWS if _bwd_smem(bm, Dp, H) <= _FWD_SMEM]
+    if not fits:
+        raise ValueError(
+            f"no row-pass tile fits H={H}, Dp={Dp}: {_bwd_smem(16, Dp, H)} "
+            f"bytes of shared memory at 16 rows, over {_FWD_SMEM}")
+    bm = next((bm for bm in fits if -(-B // bm) >= _FWD_SMS), fits[-1])
+    return BwdPlan(bm, -(-B // bm), _bwd_smem(bm, Dp, H))
 
 
 def _bias(b):
@@ -430,7 +489,10 @@ def _reduce_plan(B: int, T: int, Dp: int, H: int) -> ReducePlan:
     return ReducePlan(per_step, T * per_step)
 
 
-def _k3(x2, w, b, g, T: int, need_dx: bool):
+def _k3_launch(x2, w, b, g, T: int, need_dx: bool):
+    """K3 on the card: (dx or None, dw, db, hstash), the last the row
+    pass's bf16 h_{t-1} stash [T, B, H] (K1's h after t steps, rounded).
+    ``_k3`` drops the stash; chip_smoke.py holds it against K1."""
     D, H, Dp = _check_cuda("lstm_window_bwd", x2, T, w, b)
     if x2.data_ptr() % 16 or x2.stride(0) % 8:
         raise ValueError("lstm_window_bwd: window rows must start at "
@@ -442,23 +504,31 @@ def _k3(x2, w, b, g, T: int, need_dx: bool):
         raise ValueError(f"lstm_window_bwd: cotangent {tuple(g.shape)} != "
                          f"{(B, H)}")
     plan = _reduce_plan(B, T, Dp, H)
-    wx, wh = _split_weights(w, D, Dp)
-    wtr = torch.cat([wh.t().reshape(-1), wx.t().reshape(-1)]).contiguous()
-    gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    try:
+        rows = _bwd_plan(B, Dp, H)
+    except ValueError as e:
+        raise ValueError(f"lstm_window_bwd: {e}") from None
+    f32 = torch.float32
+    gates = torch.empty((T, B, 4 * H), dtype=f32, device=dev)
     hstash = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((plan.splits, Dp + H + 1, 4 * H), dtype=torch.float32,
+    cst = torch.empty((T, rows.blocks * rows.bm * H), dtype=f32, device=dev)
+    part = torch.empty((plan.splits, Dp + H + 1, 4 * H), dtype=f32,
                        device=dev)
     dx = (torch.empty((B, T * Dp), dtype=x2.dtype, device=dev)
           if need_dx else None)
-    dw = torch.empty((Dp + H, 4 * H), dtype=torch.float32, device=dev)
-    db = torch.empty(4 * H, dtype=torch.float32, device=dev)
-    _launch(lib, "lstm_bwd_launch", [_PTR, _INT] + [_PTR] * 10 + [_INT], x2,
-            x2, x2.stride(0), _packed(w, D, Dp), wtr, _bias(b), g, gates,
-            hstash, dx if need_dx else None, dw, db, part, plan.per_step,
-            B, T, Dp, H)
+    dw = torch.empty((Dp + H, 4 * H), dtype=f32, device=dev)
+    db = torch.empty(4 * H, dtype=f32, device=dev)
+    _launch(lib, "lstm_bwd_launch", [_PTR, _INT] + [_PTR] * 11, x2,
+            x2, x2.stride(0), _fragments(w, D, Dp), _bwd_fragments(w, D, Dp),
+            _bias(b), g, gates, hstash, cst, dx, dw, db, part, plan.per_step,
+            B, T, Dp, H, rows.bm)
     lstm_window_bwd.launches += 1
     dw = torch.cat([dw[:D], dw[Dp:]], dim=0).to(w.dtype)
-    return dx, dw, db.to(b.dtype)
+    return dx, dw, db.to(b.dtype), hstash
+
+
+def _k3(x2, w, b, g, T: int, need_dx: bool):
+    return _k3_launch(x2, w, b, g, T, need_dx)[:3]
 
 
 def _on_cpu(x2) -> bool:
@@ -493,8 +563,10 @@ lstm_window_bwd.launches = 0
 
 
 class _FlatOp(torch.autograd.Function):
-    """K1 with K3 (``need_dx=True``) as its backward: the counterpart of
-    pallas_lstm ``_flat_op``."""
+    """K1 with K3 as its backward: the counterpart of pallas_lstm
+    ``_flat_op``.  K3 forms dx only when the window requires grad (the
+    PPO encoders' windows are observations that need none); dw and db
+    are the same either way."""
 
     @staticmethod
     def forward(ctx, x2, w, b, T):
@@ -505,7 +577,8 @@ class _FlatOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w, b = ctx.saved_tensors
-        dx, dw, db = lstm_window_bwd(x2, w, b, g, ctx.T, need_dx=True)
+        dx, dw, db = lstm_window_bwd(x2, w, b, g, ctx.T,
+                                     need_dx=ctx.needs_input_grad[0])
         return dx, dw, db, None
 
 
