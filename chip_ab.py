@@ -18,7 +18,16 @@ of K2 and K4 at the last two, cuDNN's LSTM forwards beside each
 (``lstm_window_bwd``) at the last three without and with dx (``K3`` /
 ``K3dx``), its row pass's and its reduction's (partial + combine) device
 times without dx (``K3rows`` / ``K3red``) and cuDNN's forward + grad of
-the weights (``cudnn_grad``); and the 100v/50r train event after 400 slots of training (host clock, median
+the weights (``cudnn_grad``); K5 (``channel_phase``) at chip_smoke.py's
+timing input (16 envs x 100 users x 50 channels, ``k5_inputs`` seed 99,
+taken from the chip_smoke.py beside this file so that every tree gets the
+same input): CUDA events (``K5``), device time of all its launches
+(``K5dev``) and of the two passes where the tree has them
+(``K5accept`` / ``K5merge``); the 100v/50r greedy serving slot, 30
+``evaluate_drqn`` slots (``serve_slot_ms``: host clock per slot, median
+of 3 runs after a warm one; ``serve_busy_ms`` / ``serve_K5_ms``: device
+busy time and K5's device time per slot under torch.profiler); and the
+100v/50r train event after 400 slots of training (host clock, median
 of 5 after a warm one) with its device busy time.  Needs one CUDA device
 and nvcc; imports nothing of JAX.
 """
@@ -26,6 +35,7 @@ and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import statistics
@@ -34,6 +44,7 @@ import sys
 import tempfile
 import time
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 T = 6
 SHAPES = (("1600", 1600, 100, 256), ("2400h128", 2400, 25, 128),
           ("2048", 2048, 23, 256), ("25600", 25600, 100, 256))
@@ -48,8 +59,10 @@ def time_tree(root: str) -> dict:
 
     import chip_smoke as cs
     from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.models import qnets
+    from diral_tpu_torch.ops import channel_phase as K5
     from diral_tpu_torch.ops import lstm_window as K1
-    from diral_tpu_torch.train import loop, runner
+    from diral_tpu_torch.train import evaluate, loop, runner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -122,7 +135,47 @@ def time_tree(root: str) -> dict:
             out[f"cudnn_grad_{tag}"] = cuda_ms(lambda: torch.autograd.grad(
                 lstm(x3)[0][:, -1], params, grad_outputs=g))
 
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    k5_args = here.k5_inputs(torch, np, dev, 99)
+
+    def k5():
+        return K5.channel_phase(*k5_args, 7, 50, 250.0, 2, True)
+
+    out["K5"] = cuda_ms(k5)
+    k5()
+    torch.cuda.synchronize()
+    _, rows, _ = cs.device_profile(torch, lambda: [k5() for _ in range(20)],
+                                   20)
+    for key, kernel in (("K5dev", "channel_phase"),
+                        ("K5accept", "channel_phase_accept"),
+                        ("K5merge", "channel_phase_merge")):
+        out[key] = sum(ms for k, ms, _ in rows if kernel in k)
+
     scale = load_config(os.path.join(root, "configs", "scale_100v_50r.yaml"))
+    params = qnets.drqn_init(torch.Generator(device=dev).manual_seed(0),
+                             scale.env.state_space, scale.env.num_channels,
+                             scale.agent, torch.float32, dev)
+    slots = 30
+
+    def serve():
+        evaluate.evaluate_drqn(scale, params, 5, steps=slots, device=dev)
+
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / slots)
+    out["serve_slot_ms"] = statistics.median(times[1:])
+    _, rows, busy = cs.device_profile(torch, serve, slots)
+    out["serve_busy_ms"] = busy
+    out["serve_K5_ms"] = sum(ms for key, ms, _ in rows
+                             if "channel_phase" in key)
+
     run = dataclasses.replace(scale, time_slots=400)
     with tempfile.TemporaryDirectory() as wd:
         carry, _ = runner.train_experiment(run, wd, device=dev, verbose=False)

@@ -14,7 +14,9 @@ failure exits non-zero:
    on the card, at the shapes of the 100v/50r serving path, inputs from a
    numpy seed -- K1 LSTM window (the K1 class: each |dh| within 1e-4
    plus one bf16 step, the median below 1e-6), K5 channel walk
-   (bit-exact), K6 piggy histogram (bit-exact); K7 lanes histogram
+   (bit-exact; also at N = 37 / C = 8, N = 255, actions -1 and C and a
+   real 100v/50r env's state, each with its two-pass plan, and its
+   passes' device times), K6 piggy histogram (bit-exact); K7 lanes histogram
    (bit-exact) at the PPO shape, the toy serving shape, a batch that is
    not a multiple of the TPU pack width and N*N = 121; kernel / plain /
    library times (CUDA events, median of 7 after warm-up);
@@ -790,6 +792,129 @@ def ps_phase(torch, np, here, cfg, dev, zero_counts, read_counts, failures,
         failures.append("CLI train-ps")
 
 
+def k5_inputs(torch, np, dev, seed, NE=16, N=100, C=50, cluster=False,
+              seq_hi=500_000, odd_actions=False):
+    """K5's arguments for NE envs of N users and C channels from a numpy
+    seed: positions over 2000 m (``cluster``: all within 200 m, long merge
+    chains), y in {0, 1}, random tables; ``odd_actions``: a quarter of the
+    actions are -1 or C, which transmit on no channel."""
+    rng = np.random.RandomState(seed)
+    if cluster:
+        px = np.tile(np.linspace(0.0, 200.0, N), (NE, 1))
+    else:
+        px = rng.randint(0, 2000, (NE, N)) + rng.uniform(0, 30, (NE, N))
+    py = rng.randint(0, 2, (NE, N))
+    acts = rng.randint(0, C, (NE, N))
+    tables = [rng.uniform(0, 2000, (NE, N, N)), rng.uniform(0, 2, (NE, N, N)),
+              rng.randint(0, seq_hi, (NE, N, N)),
+              rng.randint(0, 40, (NE, N, N)), rng.randint(-1, 10, (NE, N, N))]
+    if odd_actions:
+        odd = np.random.RandomState(seed + 1000)
+        acts = np.where(odd.rand(NE, N) < 0.25,
+                        odd.choice([-1, C], (NE, N)), acts)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    i = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    return [f(px), f(py), i(acts), f(tables[0]), f(tables[1]), i(tables[2]),
+            i(tables[3]), i(tables[4])]
+
+
+def k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms, failures):
+    """K5 against its plain version on the card, bit for bit: the seven
+    16 x 100 x 50 cases (designs 2/3/4 x merge on/off, a cluster), N = 37
+    / C = 8, N at the plan's limit (255), actions -1 and C, and the state
+    of a real 100v/50r env after 8 slots.  Each case prints its plan
+    (grids, threads, shared bytes, width); phase 2 prints the accept and
+    merge passes' registers and spills (nvcc -Xptxas -v).  Times
+    at the 16 x 100 x 50 input (seed 99): CUDA events for the wrapper,
+    torch.profiler device time of both passes and of each, the bound."""
+    from diral_tpu_torch.ops.distance import pairwise_distances
+
+    R, C = 250.0, 50
+
+    def check(label, args, c, design, merge, t=7):
+        b, n = args[0].shape
+        p = K5._k5_plan(b, n, c)
+        got = K5.channel_phase(*args, t, c, R, design, merge)
+        want = K5.channel_phase_plain(*args, t, c, R, design, merge)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(got, want))
+        err = max(float((g.double() - h.double()).abs().max())
+                  for g, h in zip(got, want))
+        log(f"K5 {label} (B={b} N={n} C={c} design={design} merge={merge}): "
+            f"max|diff|={err:.3e} {'bit-exact' if same else 'FAIL'}; plan "
+            f"accept {p.accept_grid} x {p.accept_threads} threads, "
+            f"{p.accept_smem} B; merge {p.merge_grid} x {p.merge_threads} "
+            f"threads, {p.merge_smem} B, width {p.width}")
+        if not same:
+            failures.append(f"K5 {label} design={design} merge={merge}")
+        return err
+
+    err = 0.0
+    cases = [(d, m, False) for d in (2, 3, 4) for m in (True, False)]
+    cases.append((2, True, True))
+    for k, (design, merge, cluster) in enumerate(cases):
+        err = max(err, check("cluster" if cluster else "random",
+                             k5_inputs(torch, np, dev, 10 + k, cluster=cluster),
+                             C, design, merge))
+    check("N=37", k5_inputs(torch, np, dev, 20, N=37, C=8), 8, 3, True)
+    check("N at the plan's limit", k5_inputs(
+        torch, np, dev, 21, N=K5.MAX_USERS, C=8), 8, 2, True)
+    check("N at the plan's limit, cluster", k5_inputs(
+        torch, np, dev, 22, N=K5.MAX_USERS, C=50, cluster=True), 50, 4, True)
+    check("actions -1 and C", k5_inputs(torch, np, dev, 23, odd_actions=True),
+          C, 2, True)
+    scale = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    st = E.reset(scale.env, 16, gen, torch.float32, dev)
+    for t in range(8):
+        acts = E.sample_actions(scale.env, gen, 16, dev)
+        st, _, _ = E.step_channel(scale.env, st, acts, t)
+    acts = E.sample_actions(scale.env, gen, 16, dev).to(torch.int32)
+    state = [getattr(st, f).contiguous() for f in (
+        "pos_x", "pos_y", "table_x", "table_y", "table_seq", "table_age",
+        "last_arrival")]
+    check("100v/50r env after 8 slots", state[:2] + [acts] + state[2:], C,
+          scale.env.reward_design, True, t=8)
+
+    NE, N = 16, 100
+    args = k5_inputs(torch, np, dev, 99)
+    call = lambda: K5.channel_phase(*args, 7, C, R, 2, True)
+    k5_ms = cuda_ms(call)
+    k5_plain_ms = cuda_ms(lambda: K5.channel_phase_plain(*args, 7, C, R, 2,
+                                                         True))
+    call()
+    torch.cuda.synchronize()
+    reps = 20
+    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(reps)],
+                                reps)
+    accept_ms = sum(ms for k, ms, _ in prow if "channel_phase_accept" in k)
+    merge_ms = sum(ms for k, ms, _ in prow if "channel_phase_merge" in k)
+    # operations this input needs: distances (6 per pair), and per busy
+    # channel a closest-tx scan, PRR and last_arrival pass over its
+    # transmitters (3 per receiver-transmitter pair) and one compare per
+    # entry of every merging receiver's row
+    D_ = pairwise_distances(args[0], args[1])
+    ops = 6.0 * NE * N * N
+    for ch in range(C):
+        txm = args[2] == ch
+        tot = txm.sum(1)
+        reach = (txm[:, None, :] & (D_ < R)).any(-1) & ~txm & (tot > 0)[:, None]
+        ops += 3.0 * N * float(tot.sum()) + N * float(reach.sum())
+    nbytes = 4 * (3 * NE * N + 2 * 5 * NE * N * N + NE * N + NE * N * C)
+    row = dict(name="K5 channel_phase (step_channel walk)", route="cuda",
+               source="diral_tpu_torch/csrc/channel_phase.cu",
+               replaces="diral_tpu/ops/pallas_step.py:60",
+               max_abs_err=err, ms=k5_ms, plain_ms=k5_plain_ms,
+               library_ms=None, device_ms=accept_ms + merge_ms,
+               accept_ms=accept_ms, merge_ms=merge_ms,
+               **bound(ops, nbytes, F32_PEAK))
+    log(f"K5: kernel {k5_ms:.4f} ms (device {accept_ms + merge_ms:.4f}: "
+        f"accept {accept_ms:.4f}, merge {merge_ms:.4f})  plain "
+        f"{k5_plain_ms:.4f} ms  bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -809,7 +934,6 @@ def main() -> int:
     from diral_tpu_torch.ops import lanes_hist as K7
     from diral_tpu_torch.ops import lstm_window as K1
     from diral_tpu_torch.ops import piggy_hist as K6
-    from diral_tpu_torch.ops.distance import pairwise_distances
     from diral_tpu_torch.train import evaluate
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -913,64 +1037,9 @@ def main() -> int:
                               BF16_PEAK))
 
     # 3b. K5: channel walk, 16 envs, N = 100, C = 50
-    NE, N, C, R = 16, 100, 50, 250.0
-
-    def k5_inputs(seed, cluster=False, seq_hi=500_000):
-        rng = np.random.RandomState(seed)
-        if cluster:   # everyone within range: long merge chains
-            px = np.tile(np.linspace(0.0, 200.0, N), (NE, 1))
-        else:
-            px = rng.randint(0, 2000, (NE, N)) + rng.uniform(0, 30, (NE, N))
-        f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-        i = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-        return [f(px), f(rng.randint(0, 2, (NE, N))),
-                i(rng.randint(0, C, (NE, N))),
-                f(rng.uniform(0, 2000, (NE, N, N))),
-                f(rng.uniform(0, 2, (NE, N, N))),
-                i(rng.randint(0, seq_hi, (NE, N, N))),
-                i(rng.randint(0, 40, (NE, N, N))),
-                i(rng.randint(-1, 10, (NE, N, N)))]
-
-    k5_err = 0.0
-    cases = [(d, m, False) for d in (2, 3, 4) for m in (True, False)]
-    cases.append((2, True, True))
-    for k, (design, merge, cluster) in enumerate(cases):
-        args = k5_inputs(10 + k, cluster)
-        got = K5.channel_phase(*args, 7, C, R, design, merge)
-        want = K5.channel_phase_plain(*args, 7, C, R, design, merge)
-        torch.cuda.synchronize()
-        same = all(torch.equal(g, h) for g, h in zip(got, want))
-        err = max(float((g.double() - h.double()).abs().max())
-                  for g, h in zip(got, want))
-        k5_err = max(k5_err, err)
-        log(f"K5 design={design} merge={merge} cluster={cluster}: "
-            f"max|diff|={err:.3e} {'bit-exact' if same else 'FAIL'}")
-        if not same:
-            failures.append(f"K5 design={design} merge={merge}")
-
-    args = k5_inputs(99)
-    k5_ms = cuda_ms(lambda: K5.channel_phase(*args, 7, C, R, 2, True))
-    k5_plain_ms = cuda_ms(lambda: K5.channel_phase_plain(*args, 7, C, R, 2,
-                                                         True))
-    # operations this input needs: distances (6 per pair), and per busy
-    # channel a closest-tx scan, PRR and last_arrival pass over its
-    # transmitters (3 per receiver-transmitter pair) and one compare per
-    # entry of every merging receiver's row
-    D_ = pairwise_distances(args[0], args[1])
-    ops = 6.0 * NE * N * N
-    for ch in range(C):
-        txm = args[2] == ch
-        tot = txm.sum(1)
-        reach = (txm[:, None, :] & (D_ < R)).any(-1) & ~txm & (tot > 0)[:, None]
-        ops += 3.0 * N * float(tot.sum()) + N * float(reach.sum())
-    nbytes = 4 * (3 * NE * N + 2 * 5 * NE * N * N + NE * N + NE * N * C)
-    rows["K5"] = dict(name="K5 channel_phase (step_channel walk)", route="cuda",
-                      source="diral_tpu_torch/csrc/channel_phase.cu",
-                      replaces="diral_tpu/ops/pallas_step.py:60",
-                      max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms,
-                      library_ms=None, **bound(ops, nbytes, F32_PEAK))
-    log(f"K5: kernel {k5_ms:.4f} ms  plain {k5_plain_ms:.4f} ms  "
-        f"bound {rows['K5']['bound_ms']:.5f} ms ({rows['K5']['bound_by']})")
+    NE, N = 16, 100
+    rows["K5"] = k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms,
+                          failures)
 
     # 3c. K6: piggy histogram, 16 envs, N = 100, 50 bins over +-500
     NB, RNG = 50, 500.0
