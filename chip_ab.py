@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the LSTM window kernels of several checkouts on the card, one
-process each, to compare two commits within one call.
+"""Times the kernels of several checkouts on the card, one process each,
+to compare two commits within one call.
 
     python3 chip_ab.py TREE [TREE ...]
 
@@ -18,7 +18,17 @@ of K2 and K4 at the last two, cuDNN's LSTM forwards beside each
 (``lstm_window_bwd``) at the last three without and with dx (``K3`` /
 ``K3dx``), its row pass's and its reduction's (partial + combine) device
 times without dx (``K3rows`` / ``K3red``) and cuDNN's forward + grad of
-the weights (``cudnn_grad``); K5 (``channel_phase``) at chip_smoke.py's
+the weights (``cudnn_grad``); first of all (before any profiler pass)
+K6 (``piggy_histogram``, 16 x 100 x 50) and K7 (``lanes_histogram``, the
+PPO shape): CUDA events (median of 25), device time (``K6dev`` /
+``K7dev``), the wrapper's host time and each of its host steps
+(``host_steps_us``: checks, constants, allocation, library, binding,
+stream or device context, argument conversion, the C call; mean us over
+1000 calls, median of 5 rounds), the launch floor (``floor``: the empty
+``dtt_noop_launch`` through the same path, where the tree has it), and
+the PPO rollout slot (ppo_congested x 16 envs under hist_impl="lanes",
+K7 once a slot: ``ppo_slot_ms``, host clock per slot, median of 3
+episodes after a warm one); K5 (``channel_phase``) at chip_smoke.py's
 timing input (16 envs x 100 users x 50 channels, ``k5_inputs`` seed 99,
 taken from the chip_smoke.py beside this file so that every tree gets the
 same input): CUDA events (``K5``), device time of all its launches
@@ -94,7 +104,15 @@ def time_tree(root: str) -> dict:
         return sum(ms for key, ms, _ in rows
                    if any(k in key for k in kernels))
 
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+
     out = {"tree": os.path.basename(os.path.normpath(root))}
+    # K6, K7 and the launch floor first, before any profiler pass
+    out.update(hist_times(torch, np, here, dev, cuda_ms, device_ms))
+    out.update(ppo_slot(torch, root, dev))
     for tag, B, D, H in SHAPES:
         Dp = K1.padded_dim(D)
         x2c, w, b, wt, bt, g = cs.lstm_train_inputs(
@@ -135,10 +153,6 @@ def time_tree(root: str) -> dict:
             out[f"cudnn_grad_{tag}"] = cuda_ms(lambda: torch.autograd.grad(
                 lstm(x3)[0][:, -1], params, grad_outputs=g))
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
-    here = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(here)
     k5_args = here.k5_inputs(torch, np, dev, 99)
 
     def k5():
@@ -198,6 +212,263 @@ def time_tree(root: str) -> dict:
     out["event_100v50r_top"] = [
         (key[:60], ms) for key, ms, _ in sorted(rows, key=lambda r: -r[1])[:4]]
     return out
+
+
+def old_steps(torch, _build, K6, K7, k6, k7):
+    """The host steps of one K6 and one K7 call as the wrappers before the
+    cached launch path take them (checks, constants or edges,
+    allocations, library, ctypes binding, device context, argument
+    conversion, the C call), each a function to time alone.  Also the
+    cheaper candidates for each: the stream without a device switch, the
+    raw stream, pointers as plain ints."""
+    import ctypes
+
+    import numpy as np
+
+    f32, i32 = torch.float32, torch.int32
+    tx, ty, px, py, age, R, nb = k6
+    s, v, n, nbins, lo, hi = k7
+    dev = tx.device     # cuda:0, as the wrappers take it from the tensors
+    b = px.shape[0]
+    b7 = s.shape[0]
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    out6 = torch.empty((b, px.shape[1], nb), dtype=f32, device=dev)
+    hist = torch.empty((b7, n, nbins), dtype=f32, device=dev)
+    cnt = torch.empty((b7, n), dtype=f32, device=dev)
+    edges = np.linspace(lo, hi, nbins + 1, dtype=np.float32)
+    Rf, scale = K6._consts(R, nb, f32)
+    n6 = px.shape[1]
+    args6 = [tx, ty, px, py, age, out6, b, n6, nb, Rf, scale]
+    args7 = [s, v, hist, cnt, vp(edges.ctypes.data), b7, n, nbins]
+    lib6, lib7 = _build.library("piggy_hist"), _build.library("lanes_hist")
+
+    def checks6():
+        for name, ten, dt, shp in (
+                ("table_x", tx, f32, (b, n6, n6)),
+                ("table_y", ty, f32, (b, n6, n6)),
+                ("pos_x", px, f32, (b, n6)), ("pos_y", py, f32, (b, n6)),
+                ("table_age", age, i32, (b, n6, n6))):
+            _build.check_tensor(name, ten, dt, shp, dev)
+
+    def checks7():
+        if n * n > 128 or not 0 < nbins <= 128 or b7 <= 0:
+            raise ValueError
+        _build.check_tensor("signed", s, f32, (b7, n * n), dev)
+        _build.check_tensor("valid", v, torch.bool, (b7, n * n), dev)
+
+    def bind(lib, symbol, types):
+        def go():
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [*types(), vp]
+            return fn
+        return go
+
+    types6 = lambda: [vp] * 6 + [ci] * 3 + [cf] * 2
+    types7 = lambda: [vp] * 5 + [ci] * 3
+
+    def context():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    def convert(args):
+        return lambda: [vp(a.data_ptr()) if isinstance(a, torch.Tensor)
+                        else a for a in args]
+
+    def convert_int(args):
+        return lambda: [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+
+    fn6 = bind(lib6, "piggy_hist_launch", types6)()
+    fn7 = bind(lib7, "lanes_hist_launch", types7)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c6, c7 = convert(args6)(), convert(args7)()
+    i6, i7 = convert_int(args6)(), convert_int(args7)()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    steps = {
+        "K6": {"checks": checks6,
+               "consts": lambda: K6._consts(R, nb, f32),
+               "alloc": lambda: torch.empty((b, n6, nb), dtype=f32,
+                                            device=dev),
+               "library": lambda: _build.library("piggy_hist"),
+               "bind": bind(lib6, "piggy_hist_launch", types6),
+               "device": context, "convert": convert(args6),
+               "call": lambda: fn6(*c6, vp(stream)),
+               "convert_int": convert_int(args6),
+               "call_int": lambda: fn6(*i6, stream)},
+        "K7": {"checks": checks7,
+               "consts": lambda: vp(np.linspace(lo, hi, nbins + 1,
+                                                dtype=np.float32).ctypes.data),
+               "alloc": lambda: (torch.empty((b7, n, nbins), dtype=f32,
+                                             device=dev),
+                                 torch.empty((b7, n), dtype=f32, device=dev)),
+               "library": lambda: _build.library("lanes_hist"),
+               "bind": bind(lib7, "lanes_hist_launch", types7),
+               "device": context, "convert": convert(args7),
+               "call": lambda: fn7(*c7, vp(stream)),
+               "convert_int": convert_int(args7),
+               "call_int": lambda: fn7(*i7, stream)},
+        "stream": {"current_stream": lambda: torch.cuda.current_stream(
+                       dev).cuda_stream,
+                   "current_device": torch.cuda.current_device,
+                   "loop": lambda: None}}
+    if raw is not None:
+        steps["stream"]["raw_stream"] = lambda: raw(idx)
+    return steps
+
+
+def new_steps(torch, _build, K6, K7, k6, k7):
+    """The same host steps as ``old_steps`` on the cached launch path:
+    checks, the cached plan and constants / edges, one allocation (K7: two
+    views of it; also the two-allocation and split alternatives), the
+    library, the cached binding (``_build.entry``), the raw stream
+    (``_build._stream``), pointers as ints, the C call."""
+    tx, ty, px, py, age, R, nb = k6
+    s, v, n, nbins, lo, hi = k7
+    dev = tx.device
+    f32 = torch.float32
+    b, n6 = px.shape
+    b7 = s.shape[0]
+    lib6, lib7 = _build.library("piggy_hist"), _build.library("lanes_hist")
+    plan = K6._k6_plan(b, n6, nb)
+    Rf, scale = K6._consts(R, nb, f32)
+    out6 = torch.empty((b, n6, nb), dtype=f32, device=dev)
+    buf = torch.empty(b7 * n * (nbins + 1), dtype=f32, device=dev)
+    hist = buf.as_strided((b7, n, nbins), (n * nbins, nbins, 1))
+    cnt = buf.as_strided((b7, n), (n, 1), b7 * n * nbins)
+    args6 = [tx, ty, px, py, age, out6, b, n6, nb, Rf, scale, plan.warps,
+             plan.rows_per_warp, plan.vec]
+    args7 = [s, v, hist, cnt, K7._edges(lo, hi, nbins), b7, n, nbins]
+
+    def checks7():
+        if n * n > 128 or not 0 < nbins <= 128 or b7 <= 0:
+            raise ValueError
+        _build.check_tensor("signed", s, f32, (b7, n * n), dev)
+        _build.check_tensor("valid", v, torch.bool, (b7, n * n), dev)
+
+    def alloc7():
+        out = torch.empty(b7 * n * (nbins + 1), dtype=f32, device=dev)
+        return (out.as_strided((b7, n, nbins), (n * nbins, nbins, 1)),
+                out.as_strided((b7, n), (n, 1), b7 * n * nbins))
+
+    def alloc7_split():
+        h, c = torch.empty(b7 * n * (nbins + 1), dtype=f32, device=dev).split(
+            (b7 * n * nbins, b7 * n))
+        return h.view(b7, n, nbins), c.view(b7, n)
+
+    def convert(args):
+        return lambda: [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+
+    fn6 = _build.entry(lib6, "piggy_hist_launch", K6.ARGTYPES)
+    fn7 = _build.entry(lib7, "lanes_hist_launch", K7.ARGTYPES)
+    stream, _ = _build._stream(dev)
+    i6, i7 = convert(args6)(), convert(args7)()
+    return {
+        "K6": {"checks": lambda: K6._check(tx, ty, px, py, age, b, n6, dev),
+               "consts": lambda: (K6._k6_plan(b, n6, nb),
+                                  K6._consts(R, nb, f32)),
+               "alloc": lambda: torch.empty((b, n6, nb), dtype=f32,
+                                            device=dev),
+               "library": lambda: _build.library("piggy_hist"),
+               "bind": lambda: _build.entry(lib6, "piggy_hist_launch",
+                                            K6.ARGTYPES),
+               "device": lambda: _build._stream(dev),
+               "convert": convert(args6),
+               "call": lambda: fn6(*i6, stream)},
+        "K7": {"checks": checks7,
+               "consts": lambda: K7._edges(lo, hi, nbins),
+               "alloc": alloc7,
+               "alloc_two": lambda: (
+                   torch.empty((b7, n, nbins), dtype=f32, device=dev),
+                   torch.empty((b7, n), dtype=f32, device=dev)),
+               "alloc_split": alloc7_split,
+               "library": lambda: _build.library("lanes_hist"),
+               "bind": lambda: _build.entry(lib7, "lanes_hist_launch",
+                                            K7.ARGTYPES),
+               "device": lambda: _build._stream(dev),
+               "convert": convert(args7),
+               "call": lambda: fn7(*i7, stream)}}
+
+
+def hist_times(torch, np, here, dev, cuda_ms, device_ms) -> dict:
+    """K6 at 16 x 100 x 50 (chip_smoke.py's ``k6_inputs`` seed 5) and K7
+    at the PPO shape (16 x 6, 20 bins, ``lanes_inputs`` seed 40): CUDA
+    events (median of 25 single calls), torch.profiler device time, the
+    wrapper's mean host time and each host step's (``host_steps``); the
+    launch floor, ``dtt_noop_launch`` through ``_build.launch`` with K6's
+    arguments, where the tree has it (else null)."""
+    import ctypes
+
+    from diral_tpu_torch.ops import _build
+    from diral_tpu_torch.ops import lanes_hist as K7
+    from diral_tpu_torch.ops import piggy_hist as K6
+
+    R, NB = 500.0, 50
+    k6 = here.k6_inputs(torch, np, dev, 5)
+    s, v = here.lanes_inputs(torch, np, dev, 16, 6, 20, R, 40)
+    k6_call = lambda: K6.piggy_histogram(*k6, R, NB)
+    k7_call = lambda: K7.lanes_histogram(s, v, 6, 20, -R, R)
+    lib = _build.library("piggy_hist")
+    if hasattr(K6, "launch_floor"):
+        noop = lambda: K6.launch_floor(*k6, R, NB)
+    elif hasattr(lib, "dtt_noop_launch"):   # the launch path before entry()
+        o = torch.empty((16, 100, NB), device=dev)
+        Rf, scale = K6._consts(R, NB, torch.float32)
+        types = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                 + [ctypes.c_float] * 2)
+        noop = lambda: _build.launch(lib, "dtt_noop_launch", types, dev,
+                                     *k6, o, 16, 100, NB, Rf, scale)
+    else:
+        noop = None
+    def host_us(fn):    # mean of 1000 calls, median of 5 rounds
+        return here.host_us(torch, fn, warmup=200, rounds=5)
+
+    # host clocks first: before this process runs torch.profiler
+    out = {"K6_host_us": host_us(k6_call), "K7_host_us": host_us(k7_call),
+           "floor_host_us": noop and host_us(noop)}
+    steps = (new_steps if hasattr(_build, "entry") else old_steps)(
+        torch, _build, K6, K7, (*k6, R, NB), (s, v, 6, 20, -R, R))
+    out["host_steps_us"] = {k: {name: host_us(fn)
+                                for name, fn in group.items()}
+                            for k, group in steps.items()}
+    out.update({"K6": cuda_ms(k6_call, reps=25),
+                "K7": cuda_ms(k7_call, reps=25),
+                "floor": noop and cuda_ms(noop, reps=25),
+                "K6dev": device_ms(k6_call, "piggy_hist"),
+                "K7dev": device_ms(k7_call, "lanes_hist")})
+    out["floor_host_us_after_profile"] = noop and host_us(noop)
+    return out
+
+
+def ppo_slot(torch, root, dev, slots_runs=3) -> dict:
+    """The PPO rollout slot (ppo_congested, 16 envs, hist_impl="lanes":
+    K7 once a slot): host clock per slot of ``rollout`` (median of
+    ``slots_runs`` episodes after a warm one) and K7 launches per slot."""
+    from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.ops import lanes_hist as K7
+    from diral_tpu_torch.train import ppo_loop
+
+    cfg = load_config(os.path.join(root, "configs", "ppo_congested.yaml"))
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+        cfg.env, state=dataclasses.replace(cfg.env.state, hist_impl="lanes")))
+    fns = ppo_loop.make_ppo_functions(cfg, device=dev)
+    draws = ppo_loop.PPODraws(torch.Generator(device=dev).manual_seed(3))
+    env_state, history = fns.init_state(draws)
+    lrn = fns.init_learner(draws)
+    fns.rollout(env_state, history, lrn, 0, draws)
+    L = cfg.episode_interval
+    times, before = [], K7.lanes_histogram.launches
+    for ep in range(1, slots_runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns.rollout(env_state, history, lrn, ep, draws)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / L)
+    return {"ppo_slot_ms": statistics.median(times),
+            "ppo_slot_K7": (K7.lanes_histogram.launches - before)
+            / (slots_runs * L)}
 
 
 def main(argv) -> int:

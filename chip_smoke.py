@@ -16,10 +16,14 @@ failure exits non-zero:
    plus one bf16 step, the median below 1e-6), K5 channel walk
    (bit-exact; also at N = 37 / C = 8, N = 255, actions -1 and C and a
    real 100v/50r env's state, each with its two-pass plan, and its
-   passes' device times), K6 piggy histogram (bit-exact); K7 lanes histogram
-   (bit-exact) at the PPO shape, the toy serving shape, a batch that is
-   not a multiple of the TPU pack width and N*N = 121; kernel / plain /
-   library times (CUDA events, median of 7 after warm-up);
+   passes' device times), K6 piggy histogram (bit-exact at 16 x 100 x 50,
+   N = 37, N = 255 with 128 bins, N = 1, B = 1 with 20 bins and a real
+   100v/50r env's tables, each with its plan; its device time, wrapper
+   host time and the launch floor: ``dtt_noop_launch``, an empty kernel,
+   through the same launch path); K7 lanes histogram (bit-exact) at the
+   PPO shape, the toy serving shape, a batch that is not a multiple of the
+   TPU pack width and N*N = 121, with its device and host times; kernel /
+   plain / library times (CUDA events, median of 7 after warm-up);
 4. reference phases: a small env (N = 40) stepped through the kernels on
    the card and through the plain versions on the CPU, same actions:
    tables, observations, rewards and state vectors bit-equal, Q-values
@@ -605,18 +609,26 @@ def k7_phase(torch, np, K7, dev, cuda_ms, failures):
             failures.append(f"K7 {label}")
     B, N = 16, 6
     s, v = lanes_inputs(torch, np, dev, B, N, nbins, R, 40)
-    ms = cuda_ms(lambda: K7.lanes_histogram(s, v, N, nbins, -R, R))
+    call = lambda: K7.lanes_histogram(s, v, N, nbins, -R, R)
+    host = host_us(torch, call)
+    ms = cuda_ms(call)
     plain_ms = cuda_ms(lambda: K7.lanes_histogram_plain(s, v, N, nbins, -R,
                                                         R))
+    call()
+    torch.cuda.synchronize()
+    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(20)], 20)
+    device_ms = sum(t for k, t, _ in prow if "lanes_hist" in k)
     # bytes: signed (4) and valid (1) per entry in, hist and cnt out;
     # operations: two compares, an and and an add per (entry, bin)
     row = dict(name="K7 lanes_hist (envs-in-lanes count histogram)",
                route="cuda", source="diral_tpu_torch/csrc/lanes_hist.cu",
                replaces="diral_tpu/ops/pallas_kernels.py:121",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               device_ms=device_ms, host_us=host,
                **bound(4.0 * B * N * N * nbins,
                        5 * B * N * N + 4 * B * N * (nbins + 1), F32_PEAK))
-    log(f"K7 PPO shape: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+    log(f"K7 PPO shape: kernel {ms:.4f} ms (device {device_ms:.4f}, wrapper "
+        f"host {host:.2f} us)  plain {plain_ms:.4f} ms  bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
 
@@ -816,6 +828,113 @@ def k5_inputs(torch, np, dev, seed, NE=16, N=100, C=50, cluster=False,
     i = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
     return [f(px), f(py), i(acts), f(tables[0]), f(tables[1]), i(tables[2]),
             i(tables[3]), i(tables[4])]
+
+
+def k6_inputs(torch, np, dev, seed, NE=16, N=100, NB=50, RNG=500.0):
+    """K6's tables and positions for NE envs of N vehicles from a numpy
+    seed: stored positions within 700 m of the live ones, a quarter of
+    them exactly on a floor-rule bin edge of NB bins over +-RNG, y in
+    {0, 1}, ages 0-29."""
+    rng = np.random.RandomState(seed)
+    px = rng.randint(0, 2000, (NE, N)).astype(np.float32)
+    offs = rng.uniform(-700, 700, (NE, N, N))
+    edge = rng.randint(0, NB + 1, (NE, N, N)) * (2 * RNG / NB) - RNG
+    offs = np.where(rng.rand(NE, N, N) < 0.25, edge, offs)
+    t = lambda a, dt=np.float32: torch.from_numpy(
+        np.ascontiguousarray(a, dt)).to(dev)
+    return [t(px[:, :, None] + offs), t(rng.randint(0, 2, (NE, N, N))),
+            t(px), t(rng.randint(0, 2, (NE, N))),
+            t(rng.randint(0, 30, (NE, N, N)), np.int32)]
+
+
+def host_us(torch, fn, reps=1000, warmup=100, rounds=1):
+    """Host microseconds per call of ``fn``: the median over ``rounds`` of
+    the mean over ``reps`` calls (time.perf_counter_ns), after ``warmup``
+    calls and a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(rounds):
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter_ns() - t0) / reps / 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(means)
+
+
+def k6_phase(torch, np, K6, E, load_config, here, dev, cuda_ms, failures):
+    """K6 against its plain version on the card, bit for bit: 16 x 100 x
+    50 (the timing input), N = 37 (one-entry loads), N = 255 with 128
+    bins, N = 1, B = 1 with 20 bins, and the tables of a real 100v/50r
+    env after 8 slots; each case prints its plan.  Times at 16 x 100 x
+    50: CUDA events, the device time (torch.profiler), the wrapper's host
+    time, and the launch floor (``launch_floor``: the empty kernel through
+    the same launch path).  Returns the kernel row."""
+    NB, RNG = 50, 500.0
+    err = 0.0
+
+    def check(label, args, nb, rng):
+        nonlocal err
+        b, n = args[2].shape
+        p = K6._k6_plan(b, n, nb)
+        got = K6.piggy_histogram(*args, rng, nb)
+        want = K6.piggy_histogram_plain(*args, rng, nb)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        gap = float((got - want).abs().max())
+        err = max(err, gap)
+        log(f"K6 {label} (B={b} N={n} bins={nb}): max|diff|={gap:.3e} "
+            f"{'bit-exact' if same else 'FAIL'}; plan {p.grid[0]} blocks x "
+            f"{p.warps} warps, {p.rows_per_warp} row(s) a warp, loads of "
+            f"{p.vec}, {p.smem} B; {int((got > 0).sum())} bins hit")
+        if not same:
+            failures.append(f"K6 {label}")
+
+    k6_args = k6_inputs(torch, np, dev, 5)
+    check("16 x 100", k6_args, NB, RNG)
+    check("N=37", k6_inputs(torch, np, dev, 6, N=37), NB, RNG)
+    check("N=255, 128 bins", k6_inputs(torch, np, dev, 7, N=255, NB=128),
+          128, RNG)
+    check("N=1", k6_inputs(torch, np, dev, 8, N=1), NB, RNG)
+    check("B=1, 20 bins", k6_inputs(torch, np, dev, 9, NE=1, NB=20), 20, RNG)
+    scale = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    st = E.reset(scale.env, 16, gen, torch.float32, dev)
+    for t in range(8):
+        acts = E.sample_actions(scale.env, gen, 16, dev)
+        st, _, _ = E.step_channel(scale.env, st, acts, t)
+    check("100v/50r env after 8 slots", [getattr(st, f).contiguous() for f in (
+        "table_x", "table_y", "pos_x", "pos_y", "table_age")],
+        scale.env.state.num_bins, float(scale.env.bin_range))
+
+    NE, N = 16, 100
+    call = lambda: K6.piggy_histogram(*k6_args, RNG, NB)
+    floor = lambda: K6.launch_floor(*k6_args, RNG, NB)
+    host = host_us(torch, call)
+    floor_host = host_us(torch, floor)
+    k6_ms = cuda_ms(call)
+    floor_ms = cuda_ms(floor)
+    plain_ms = cuda_ms(lambda: K6.piggy_histogram_plain(*k6_args, RNG, NB))
+    call()
+    torch.cuda.synchronize()
+    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(20)], 20)
+    device_ms = sum(ms for k, ms, _ in prow if "piggy_hist" in k)
+    row = dict(name="K6 piggy_hist (type-2 positional distribution)",
+               route="cuda", source="diral_tpu_torch/csrc/piggy_hist.cu",
+               replaces="diral_tpu/ops/pallas_kernels.py:36",
+               max_abs_err=err, ms=k6_ms, plain_ms=plain_ms, library_ms=None,
+               device_ms=device_ms, host_us=host, floor_ms=floor_ms,
+               floor_host_us=floor_host,
+               **bound(12.0 * NE * N * N,
+                       4 * (3 * NE * N * N + 2 * NE * N + NE * N * NB),
+                       F32_PEAK))
+    log(f"K6: kernel {k6_ms:.4f} ms (device {device_ms:.4f}, wrapper host "
+        f"{host:.2f} us)  launch floor {floor_ms:.4f} ms (host "
+        f"{floor_host:.2f} us)  plain {plain_ms:.4f} ms  bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
 
 
 def k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms, failures):
@@ -1037,45 +1156,17 @@ def main() -> int:
                               BF16_PEAK))
 
     # 3b. K5: channel walk, 16 envs, N = 100, C = 50
-    NE, N = 16, 100
     rows["K5"] = k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms,
                           failures)
 
-    # 3c. K6: piggy histogram, 16 envs, N = 100, 50 bins over +-500
-    NB, RNG = 50, 500.0
-    rng = np.random.RandomState(5)
-    px = rng.randint(0, 2000, (NE, N)).astype(np.float32)
-    offs = rng.uniform(-700, 700, (NE, N, N))
-    edge = rng.randint(0, NB + 1, (NE, N, N)) * (2 * RNG / NB) - RNG
-    offs = np.where(rng.rand(NE, N, N) < 0.25, edge, offs)
-    t = lambda a, dt=np.float32: torch.from_numpy(
-        np.ascontiguousarray(a, dt)).to(dev)
-    k6_args = [t(px[:, :, None] + offs), t(rng.randint(0, 2, (NE, N, N))),
-               t(px), t(rng.randint(0, 2, (NE, N))),
-               t(rng.randint(0, 30, (NE, N, N)), np.int32)]
-    got = K6.piggy_histogram(*k6_args, RNG, NB)
-    want = K6.piggy_histogram_plain(*k6_args, RNG, NB)
-    torch.cuda.synchronize()
-    k6_err = float((got - want).abs().max())
-    same = torch.equal(got, want)
-    log(f"K6: max|diff|={k6_err:.3e} {'bit-exact' if same else 'FAIL'}")
-    if not same:
-        failures.append("K6")
-    k6_ms = cuda_ms(lambda: K6.piggy_histogram(*k6_args, RNG, NB))
-    k6_plain_ms = cuda_ms(lambda: K6.piggy_histogram_plain(*k6_args, RNG, NB))
-    rows["K6"] = dict(name="K6 piggy_hist (type-2 positional distribution)",
-                      route="cuda", source="diral_tpu_torch/csrc/piggy_hist.cu",
-                      replaces="diral_tpu/ops/pallas_kernels.py:36",
-                      max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms,
-                      library_ms=None,
-                      **bound(12.0 * NE * N * N,
-                              4 * (3 * NE * N * N + 2 * NE * N + NE * N * NB),
-                              F32_PEAK))
-    log(f"K6: kernel {k6_ms:.4f} ms  plain {k6_plain_ms:.4f} ms  "
-        f"bound {rows['K6']['bound_ms']:.5f} ms ({rows['K6']['bound_by']})")
+    # 3c. K6: piggy histogram, 16 envs, N = 100, 50 bins over +-500, and
+    # the launch floor beside K6 and K7
+    rows["K6"] = k6_phase(torch, np, K6, E, load_config, here, dev, cuda_ms,
+                          failures)
 
     # 3d. K7: the lanes histogram
     rows["K7"] = k7_phase(torch, np, K7, dev, cuda_ms, failures)
+    rows["K7"]["floor_ms"] = rows["K6"]["floor_ms"]
 
     # 4. reference phase: kernels on the card vs plain versions on the CPU
     scale = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))

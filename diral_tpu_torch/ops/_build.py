@@ -8,6 +8,11 @@ content hash, so an edited source is rebuilt and an unchanged one is
 reused.  ``build_all`` starts one ``nvcc`` per missing library, all at
 once.
 
+``launch`` is the one path from a wrapper to its C entry: each entry is
+bound once (``entry``), tensors go as their data pointers, the stream is
+read as a raw handle, and the device is switched only where the tensors'
+device is not the current one.
+
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false``: the channel
 walk and the histogram are meant to match their plain PyTorch versions
 bit for bit, and eager PyTorch rounds ``a*b + c`` as two operations.
@@ -96,21 +101,47 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib: ctypes.CDLL, symbol: str, argtypes: list, device,
-           *args) -> None:
+_ENTRIES: dict = {}
+
+
+def entry(lib, symbol: str, argtypes) -> "ctypes._CFuncPtr":
+    """The C entry ``symbol`` of ``lib``, bound once: it returns an int
+    (a ``cudaError_t``) and takes ``argtypes`` and then the stream."""
+    key = (lib, symbol)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        _ENTRIES[key] = fn
+    return fn
+
+
+def _stream(device) -> tuple[int, bool]:
+    """(the current stream of ``device`` as a raw handle, whether
+    ``device`` is not the current device).  The raw handle is PyTorch's
+    own ``_cuda_getCurrentRawStream``; ``torch.cuda.current_stream``
+    would build a Stream object inside a device switch on every call."""
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(idx), idx != cur
+
+
+def launch(lib, symbol: str, argtypes, device, *args) -> None:
     """Call the C entry ``symbol`` of ``lib`` on ``device``'s current
     stream.  Tensors in ``args`` are passed as their data pointers;
     ``argtypes`` declares every argument but the stream, which each entry
     takes last.  Each entry returns the ``cudaError_t`` of its launch; a
-    non-zero one raises (the library's ``dtt_error_string`` names it)."""
-    fn = getattr(lib, symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
+    non-zero one raises (the library's ``dtt_error_string`` names it).
+    The device is switched to only where it is not the current one."""
+    fn = entry(lib, symbol, argtypes)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream, switch = _stream(device)
+    if switch:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    else:
+        err = fn(*args, stream)
     if err != 0:
         msg = lib.dtt_error_string
         msg.restype, msg.argtypes = ctypes.c_char_p, [ctypes.c_int]
@@ -125,7 +156,8 @@ def check_tensor(name, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if t.shape != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

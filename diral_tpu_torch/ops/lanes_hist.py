@@ -25,6 +25,7 @@ is a plain exact one-thread-per-count kernel instead.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,6 +35,16 @@ from diral_tpu_torch.ops.histogram import bin_membership
 
 MAX_BINS = 128      # csrc/lanes_hist.cu kMaxBins
 MAX_ROW_PAIRS = 128  # N*N <= 128, the TPU kernel's lane budget
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+
+
+@functools.lru_cache(maxsize=64)
+def _edges(lo: float, hi: float, nbins: int):
+    """``np.linspace(lo, hi, nbins + 1)`` in float32, the exact edges the
+    kernel compares against, as a ready ctypes array (made once per
+    (lo, hi, nbins))."""
+    e = np.linspace(lo, hi, nbins + 1, dtype=np.float32)
+    return (ctypes.c_float * (nbins + 1))(*e.tolist())
 
 
 def lanes_histogram_plain(signed, valid, n: int, nbins: int, lo: float,
@@ -66,13 +77,12 @@ def lanes_histogram(signed, valid, n: int, nbins: int, lo: float, hi: float):
     _build.check_tensor("signed", signed, torch.float32, (b, n * n), dev)
     _build.check_tensor("valid", valid, torch.bool, (b, n * n), dev)
     lib = _build.library("lanes_hist")
-    edges = np.linspace(lo, hi, nbins + 1, dtype=np.float32)
-    hist = torch.empty((b, n, nbins), dtype=torch.float32, device=dev)
-    cnt = torch.empty((b, n), dtype=torch.float32, device=dev)
-    _build.launch(lib, "lanes_hist_launch",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3, dev,
-                  signed, valid, hist, cnt, ctypes.c_void_p(edges.ctypes.data),
-                  b, n, nbins)
+    # hist and cnt: two contiguous views of one allocation
+    buf = torch.empty(b * n * (nbins + 1), dtype=torch.float32, device=dev)
+    hist = buf.as_strided((b, n, nbins), (n * nbins, nbins, 1))
+    cnt = buf.as_strided((b, n), (n, 1), b * n * nbins)
+    _build.launch(lib, "lanes_hist_launch", ARGTYPES, dev, signed, valid,
+                  hist, cnt, _edges(lo, hi, nbins), b, n, nbins)
     lanes_histogram.launches += 1
     return hist, cnt
 
