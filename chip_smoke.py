@@ -69,7 +69,28 @@ failure exits non-zero:
    ``hist_impl="lanes"``, PS-DQN and PS-DRQN for 8 episodes each, finite
    losses, K7 launches; the ``train-ps`` verb;
 11. a torch.profiler pass over toy and 100v/50r train events;
-12. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
+12. run management (train/checkpoint.py, sweep.py, profiling.py), each
+   phase with its seconds:
+   (a) the PRR configs through ``train_experiment`` at their published
+       widths -- congested_6v_5r (design topology) and dynamic_20v_15r
+       (velocity kicks), both on the channel step -- 550 slots each (two
+       train events), launch counters around each, finite losses;
+   (b) exact resume at full width on 100v/50r (save_model, save_freq
+       300): B stops at 300, C resumes it to 350 (launch counters around
+       C), A runs 350 slots uninterrupted; C's carry (nets, Adam, replay,
+       env, history, schedules), its generator state and its sum_reward /
+       actions arrays must equal A's bit for bit; the checkpoint's bytes,
+       its save and restore seconds and the slots/s of A and C;
+   (c) ``eval --checkpoint DIR --best`` on B's directory (learner only);
+   (d) ``train-sweep configs/toy_4ue_3r.yaml --seeds 2`` (550 slots, a
+       100-slot eval), row 0's sum_reward bit-equal to a standalone
+       ``train_experiment(seed=0)``;
+   (e) the ``profile`` verb on 100v/50r (16 envs, 100 slots): its
+       top_ops name the csrc kernels of K1, K2, K3, K5 and K6, its
+       ``--trace-dir`` (a temporary directory) gets a Chrome trace; its
+       category table;
+   then the script's total seconds;
+13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It imports nothing of JAX nor of the JAX package.
 """
@@ -121,6 +142,38 @@ def device_profile(torch, fn, per):
              e.count / per) for e in prof.key_averages()
             if e.device_type == cuda]
     return wall_ms, rows, sum(ms for _, ms, _ in rows)
+
+
+def kernel_device_ms(torch, call, names, reps, failures, label, tries=3):
+    """Device ms per call of each kernel whose name holds one of ``names``,
+    from torch.profiler over ``reps`` calls of ``call``.  The profiler can
+    drop a window's kernel records (seen once for K7's 20 launches), so
+    each window opens with a 20 ms pause before the first launch, and a
+    window that holds fewer than ``reps`` records of a name is traced
+    again, up to ``tries`` windows; a name still short is not measured:
+    None, and ``label`` goes to ``failures``."""
+    def window():
+        time.sleep(0.02)
+        for _ in range(reps):
+            call()
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        _, prow, _ = device_profile(torch, window, reps)
+        # per name: (device ms, records) per call
+        got = {n: (sum(ms for k, ms, _ in prow if n in k),
+                   sum(c for k, _, c in prow if n in k)) for n in names}
+        short = [n for n, (_, c) in got.items() if c < 1]
+        if not short:
+            return {n: ms for n, (ms, _) in got.items()}
+        log(f"{label}: profiler window {attempt} of {tries} holds fewer "
+            f"than {reps} records of " + ", ".join(short))
+    failures.append(f"{label}: device time not measured")
+    return {n: (None if n in short else ms) for n, (ms, _) in got.items()}
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def log_profile(title, unit, wall_ms, rows, busy, top):
@@ -615,9 +668,8 @@ def k7_phase(torch, np, K7, dev, cuda_ms, failures):
     plain_ms = cuda_ms(lambda: K7.lanes_histogram_plain(s, v, N, nbins, -R,
                                                         R))
     call()
-    torch.cuda.synchronize()
-    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(20)], 20)
-    device_ms = sum(t for k, t, _ in prow if "lanes_hist" in k)
+    device_ms = kernel_device_ms(torch, call, ["lanes_hist"], 20, failures,
+                                 "K7 PPO shape")["lanes_hist"]
     # bytes: signed (4) and valid (1) per entry in, hist and cnt out;
     # operations: two compares, an and and an add per (entry, bin)
     row = dict(name="K7 lanes_hist (envs-in-lanes count histogram)",
@@ -627,8 +679,8 @@ def k7_phase(torch, np, K7, dev, cuda_ms, failures):
                device_ms=device_ms, host_us=host,
                **bound(4.0 * B * N * N * nbins,
                        5 * B * N * N + 4 * B * N * (nbins + 1), F32_PEAK))
-    log(f"K7 PPO shape: kernel {ms:.4f} ms (device {device_ms:.4f}, wrapper "
-        f"host {host:.2f} us)  plain {plain_ms:.4f} ms  bound "
+    log(f"K7 PPO shape: kernel {ms:.4f} ms (device {ms_text(device_ms)}, "
+        f"wrapper host {host:.2f} us)  plain {plain_ms:.4f} ms  bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
 
@@ -918,9 +970,8 @@ def k6_phase(torch, np, K6, E, load_config, here, dev, cuda_ms, failures):
     floor_ms = cuda_ms(floor)
     plain_ms = cuda_ms(lambda: K6.piggy_histogram_plain(*k6_args, RNG, NB))
     call()
-    torch.cuda.synchronize()
-    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(20)], 20)
-    device_ms = sum(ms for k, ms, _ in prow if "piggy_hist" in k)
+    device_ms = kernel_device_ms(torch, call, ["piggy_hist"], 20, failures,
+                                 "K6 16 x 100")["piggy_hist"]
     row = dict(name="K6 piggy_hist (type-2 positional distribution)",
                route="cuda", source="diral_tpu_torch/csrc/piggy_hist.cu",
                replaces="diral_tpu/ops/pallas_kernels.py:36",
@@ -930,8 +981,8 @@ def k6_phase(torch, np, K6, E, load_config, here, dev, cuda_ms, failures):
                **bound(12.0 * NE * N * N,
                        4 * (3 * NE * N * N + 2 * NE * N + NE * N * NB),
                        F32_PEAK))
-    log(f"K6: kernel {k6_ms:.4f} ms (device {device_ms:.4f}, wrapper host "
-        f"{host:.2f} us)  launch floor {floor_ms:.4f} ms (host "
+    log(f"K6: kernel {k6_ms:.4f} ms (device {ms_text(device_ms)}, wrapper "
+        f"host {host:.2f} us)  launch floor {floor_ms:.4f} ms (host "
         f"{floor_host:.2f} us)  plain {plain_ms:.4f} ms  bound "
         f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
     return row
@@ -1002,12 +1053,13 @@ def k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms, failures):
     k5_plain_ms = cuda_ms(lambda: K5.channel_phase_plain(*args, 7, C, R, 2,
                                                          True))
     call()
-    torch.cuda.synchronize()
-    reps = 20
-    _, prow, _ = device_profile(torch, lambda: [call() for _ in range(reps)],
-                                reps)
-    accept_ms = sum(ms for k, ms, _ in prow if "channel_phase_accept" in k)
-    merge_ms = sum(ms for k, ms, _ in prow if "channel_phase_merge" in k)
+    dev_ms = kernel_device_ms(torch, call, ["channel_phase_accept",
+                                            "channel_phase_merge"], 20,
+                              failures, "K5 16 x 100 x 50")
+    accept_ms = dev_ms["channel_phase_accept"]
+    merge_ms = dev_ms["channel_phase_merge"]
+    both_ms = (None if None in (accept_ms, merge_ms)
+               else accept_ms + merge_ms)
     # operations this input needs: distances (6 per pair), and per busy
     # channel a closest-tx scan, PRR and last_arrival pass over its
     # transmitters (3 per receiver-transmitter pair) and one compare per
@@ -1024,14 +1076,272 @@ def k5_phase(torch, np, K5, E, load_config, here, dev, cuda_ms, failures):
                source="diral_tpu_torch/csrc/channel_phase.cu",
                replaces="diral_tpu/ops/pallas_step.py:60",
                max_abs_err=err, ms=k5_ms, plain_ms=k5_plain_ms,
-               library_ms=None, device_ms=accept_ms + merge_ms,
+               library_ms=None, device_ms=both_ms,
                accept_ms=accept_ms, merge_ms=merge_ms,
                **bound(ops, nbytes, F32_PEAK))
-    log(f"K5: kernel {k5_ms:.4f} ms (device {accept_ms + merge_ms:.4f}: "
-        f"accept {accept_ms:.4f}, merge {merge_ms:.4f})  plain "
+    log(f"K5: kernel {k5_ms:.4f} ms (device {ms_text(both_ms)}: "
+        f"accept {ms_text(accept_ms)}, merge {ms_text(merge_ms)})  plain "
         f"{k5_plain_ms:.4f} ms  bound {row['bound_ms']:.5f} ms "
         f"({row['bound_by']})")
     return row
+
+
+def carry_diff(torch, ckpt, a, b):
+    """Paths where two training carries differ (bit for bit)."""
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            if x.keys() != y.keys():
+                return [path]
+            return [p for k in x for p in walk(x[k], y[k], f"{path}.{k}")]
+        if isinstance(x, (list, tuple)):
+            return [p for u, v in zip(x, y) for p in walk(u, v, path)]
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        else:
+            same = x == y
+        return [] if same else [path]
+    return walk(ckpt.carry_state(a), ckpt.carry_state(b), "carry")
+
+
+def cli_json(cli, argv):
+    """One verb of the CLI in this process: (its stdout, its last line as
+    JSON or None)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    out = buf.getvalue()
+    try:
+        return out, json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        return out, None
+
+
+def prr_train_phase(torch, np, here, dev, load_config, runner, zero_counts,
+                    read_counts, failures, slots=550):
+    """(a) The PRR configs through ``train_experiment`` at their published
+    widths: congested_6v_5r (design topology, channel step) and
+    dynamic_20v_15r (channel step, velocity kicks), ``slots`` slots each
+    (train events at 524 and 549), launch counters around each run."""
+    import dataclasses
+    import tempfile
+
+    for name in ("congested_6v_5r", "dynamic_20v_15r"):
+        cfg = load_config(os.path.join(here, "configs", f"{name}.yaml"))
+        cfg = dataclasses.replace(cfg, time_slots=slots)
+        with tempfile.TemporaryDirectory() as wd:
+            zero_counts()
+            t0 = time.perf_counter()
+            _, out = runner.train_experiment(cfg, wd, device=dev,
+                                             verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(f"train {name} ({slots} slots)")
+        losses = out["loss"][out["loss"] != 0]
+        events = losses.size
+        need = {"K1": slots, "K2": 2 * events, "K3": 2 * events}
+        ok = (events >= 2 and finite(np, out["loss"], out["sum_reward"])
+              and all(counts[k] >= n for k, n in need.items()))
+        log(f"train {name} x {cfg.engine.num_envs} envs: {slots} slots in "
+            f"{wall:.2f} s ({slots / wall:.1f} slots/s incl. warmup and "
+            f"pretrain), {events} train events, last loss "
+            f"{losses[-1] if events else float('nan'):.6g}, mean sum reward "
+            f"{out['sum_reward'].mean():.4f}; launches {counts} (need {need})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train {name}")
+
+
+def resume_phase(torch, np, here, dev, load_config, runner, ckpt, cli,
+                 zero_counts, read_counts, failures):
+    """(b) Exact resume at full width on 100v/50r (save_model, save_freq
+    300): B stops at 300, C resumes B to 350, A runs 350 uninterrupted;
+    C's carry, generator state and arrays must equal A's bit for bit.
+    (c) ``eval --checkpoint DIR --best`` on B's directory.  Returns the
+    launch counts of C."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    base = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))
+    cfg = dataclasses.replace(base, time_slots=350, save_freq=300,
+                              save_model=True)
+    root = tempfile.mkdtemp(prefix="diral_resume_")
+    name = cfg.experiment_name
+    try:
+        wb, wa = os.path.join(root, "b"), os.path.join(root, "a")
+        ck_b = os.path.join(wb, "save_model", "test", name)
+        t0 = time.perf_counter()
+        runner.train_experiment(dataclasses.replace(cfg, time_slots=300), wb,
+                                device=dev, verbose=False)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        cc, oc = runner.train_experiment(cfg, wb, device=dev, verbose=False,
+                                         resume=True)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+        counts = read_counts("train --resume 100v/50r x 16 envs (300 -> 350)")
+        gen_c = torch.load(os.path.join(ck_b, "ckpt_350.pt"),
+                           weights_only=True, mmap=True)["generator"]
+        gen_c = dict(gen_c, state=gen_c["state"].clone())
+        # (c) eval of B's best snapshot through the CLI, learner only
+        t0 = time.perf_counter()
+        out, res = cli_json(cli, ["eval", os.path.join(here, "configs",
+                                                       "scale_100v_50r.yaml"),
+                                  "--checkpoint", ck_b, "--best",
+                                  "--steps", "50"])
+        t_eval = time.perf_counter() - t0
+        best = json.load(open(ck_b + "_best/best_metric.json"))
+        ok_eval = (res is not None and 0.0 <= res["mean_prr"] <= 1.0
+                   and f"loaded checkpoint at slot {best['step']}" in out)
+        log(f"eval --checkpoint --best (100v/50r, 50 slots): "
+            f"{out.strip().splitlines()[0] if out.strip() else ''}; "
+            f"best_metric {best}; {json.dumps(res)}; {t_eval:.2f} s "
+            f"{'ok' if ok_eval else 'FAIL'}")
+        if not ok_eval:
+            failures.append("eval --checkpoint --best")
+        shutil.rmtree(wb)
+
+        t0 = time.perf_counter()
+        ca, oa = runner.train_experiment(cfg, wa, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        t_a = time.perf_counter() - t0
+        ck_a = os.path.join(wa, "save_model", "test", name)
+        path = os.path.join(ck_a, "ckpt_350.pt")
+        gen_a = torch.load(path, weights_only=True, mmap=True)["generator"]
+        nbytes = os.path.getsize(path)
+        diff = carry_diff(torch, ckpt, ca, cc)
+        same_gen = torch.equal(gen_a["state"], gen_c["state"])
+        same_arrays = all(np.array_equal(oa[k], oc[k])
+                          for k in ("sum_reward", "actions"))
+        events_a = int((oa["loss"] != 0).sum())
+        same_loss = np.array_equal(oa["loss"][300:], oc["loss"][300:])
+
+        # save and restore of the full carry, timed alone
+        gen = torch.Generator(device=dev).manual_seed(1)
+        scratch = os.path.join(root, "timing")
+        save_s, restore_s = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(scratch, 350, ca, gen, max_to_keep=1)
+            save_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ckpt.restore(scratch, ca, gen)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+        ok = (not diff and same_gen and same_arrays and same_loss
+              and events_a == 4 and np.isnan(oc["loss"][:300]).all()
+              and all(counts[k] >= n for k, n in
+                      {"K1": 50, "K2": 4, "K3": 4, "K5": 50,
+                       "K6": 50}.items()))
+        log(f"resume 100v/50r x {cfg.engine.num_envs} envs: A 350 slots "
+            f"{t_a:.2f} s "
+            f"({350 / t_a:.1f} slots/s incl. init), B 300 slots {t_b:.2f} s, "
+            f"C 300 -> 350 {t_c:.2f} s ({50 / t_c:.1f} slots/s incl. init and "
+            f"restore); train events in A {events_a}; checkpoint "
+            f"{nbytes} bytes, save {save_s[-1]:.3f} s / restore "
+            f"{restore_s[-1]:.3f} s (second of two; first {save_s[0]:.3f} / "
+            f"{restore_s[0]:.3f} s); C vs A: carry "
+            f"{'bit-equal' if not diff else 'DIFFERS at ' + ', '.join(diff)}, "
+            f"generator {'equal' if same_gen else 'DIFFERS'}, sum_reward / "
+            f"actions {'equal' if same_arrays else 'DIFFER'}, losses after "
+            f"the cut {'equal' if same_loss else 'DIFFER'}; launches in C "
+            f"{counts} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("resume 100v/50r")
+        return dict(bytes=nbytes, save_s=save_s[-1], restore_s=restore_s[-1],
+                    a_slots_per_s=350 / t_a, c_slots_per_s=50 / t_c)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sweep_phase(torch, np, here, dev, load_config, runner, cli, failures,
+                slots=550):
+    """(d) ``train-sweep configs/toy_4ue_3r.yaml --seeds 2`` through the
+    CLI (train events at 524 and 549), with row 0's sum_reward held bit for
+    bit against a standalone ``train_experiment(seed=0)``."""
+    import dataclasses
+    import tempfile
+
+    from diral_tpu_torch.train import sweep
+
+    caught = {}
+    real = sweep.run_seed_sweep
+
+    def recording(*a, **k):
+        caught["out"] = real(*a, **k)
+        return caught["out"]
+
+    path = os.path.join(here, "configs", "toy_4ue_3r.yaml")
+    sweep.run_seed_sweep = recording
+    try:
+        t0 = time.perf_counter()
+        _, rows = cli_json(cli, ["train-sweep", path, "--seeds", "2",
+                                 "--slots", str(slots), "--eval-steps",
+                                 "100"])
+        t_sweep = time.perf_counter() - t0
+    finally:
+        sweep.run_seed_sweep = real
+    _, logs = caught["out"]
+    cfg = dataclasses.replace(load_config(path), time_slots=slots)
+    with tempfile.TemporaryDirectory() as wd:
+        _, alone = runner.train_experiment(cfg, wd, seed=0, device=dev,
+                                           verbose=False)
+    same = (np.array_equal(logs["sum_reward"][0], alone["sum_reward"])
+            and np.array_equal(logs["loss"][0], alone["loss"]))
+    keys = {"seed", "final_mean_sum_reward", "drqn_prr", "sps_prr",
+            "prr_improvement"}
+    ok = (same and rows is not None and len(rows) == 2
+          and all(set(r) == keys for r in rows)
+          and (logs["loss"] != 0).sum() == 4 and finite(np, logs["loss"]))
+    log(f"train-sweep toy --seeds 2 --slots {slots}: {t_sweep:.2f} s "
+        f"(train and eval); rows {json.dumps(rows)}; row 0 vs standalone "
+        f"train_experiment(seed=0): {'bit-equal' if same else 'DIFFERS'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("train-sweep")
+
+
+def profile_phase(here, cli, failures):
+    """(e) The ``profile`` verb on 100v/50r, 16 envs, 100 slots: its
+    top_ops must name the csrc kernels of K1, K2, K3, K5 and K6, and its
+    Chrome trace (``--trace-dir``, a temporary directory) must hold
+    events."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        _, res = cli_json(cli, ["profile",
+                                os.path.join(here, "configs",
+                                             "scale_100v_50r.yaml"),
+                                "--num-envs", "16", "--slots", "100",
+                                "--top", "500", "--trace-dir", trace_dir])
+        path = os.path.join(trace_dir, "trace.json")
+        trace_mb = os.path.getsize(path) / 2**20 if os.path.exists(path) else 0
+    wall = time.perf_counter() - t0
+    names = [o["op"] for o in (res or {}).get("top_ops", [])]
+    want = {"K1": "lstm_window_tc_kernel", "K2": "lstm_triple_tc_kernel",
+            "K3": "lstm_bwd_rows_tc_kernel", "K5": "channel_phase_",
+            "K6": "piggy_hist_kernel"}
+    found = {k: any(w in n for n in names) for k, w in want.items()}
+    ok = (res is not None and all(found.values())
+          and res["slots_per_sec"] > 0 and trace_mb > 0)
+    log(f"profile 100v/50r x 16 envs, 100 slots: {wall:.2f} s; slots/s "
+        f"{res and res['slots_per_sec']}; csrc kernels named {found}; trace "
+        f"{trace_mb:.1f} MiB {'ok' if ok else 'FAIL'}")
+    if res:
+        total = sum(res["categories"].values()) or 1.0
+        for cat, ms in res["categories"].items():
+            log(f"  {cat:16s} {ms:10.2f} ms  {100 * ms / total:5.1f}%")
+        for o in res["top_ops"][:12]:
+            log(f"  {o['ms']:8.2f} ms x{o['n']:<6d} {o['op'][:90]}")
+    if not ok:
+        failures.append("profile verb")
 
 
 def main() -> int:
@@ -1042,6 +1352,13 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    started = last = time.perf_counter()
+
+    def mark(label):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[{label}: {now - last:.1f} s]")
+        last = now
     import numpy as np
 
     from diral_tpu_torch.config import load_config
@@ -1458,7 +1775,26 @@ def main() -> int:
     profile_train_events(torch, "100v/50r", sfns, scarry,
                          scale_run.time_slots - 1, sdraws, 2)
 
-    # 12. results
+    # 12. run management: (a) the PRR configs through train, (b) exact
+    # resume at 100v/50r, (c) eval of its best snapshot, (d) the seed
+    # sweep, (e) the profile verb
+    from diral_tpu_torch.train import checkpoint as ckpt
+    from diral_tpu_torch.train import cli
+
+    mark("phases 1-11")
+    prr_train_phase(torch, np, here, dev, load_config, runner, zero_counts,
+                    read_counts, failures)
+    mark("(a) PRR configs through train")
+    resume_phase(torch, np, here, dev, load_config, runner, ckpt, cli,
+                 zero_counts, read_counts, failures)
+    mark("(b) resume and (c) eval --checkpoint --best")
+    sweep_phase(torch, np, here, dev, load_config, runner, cli, failures)
+    mark("(d) train-sweep")
+    profile_phase(here, cli, failures)
+    mark("(e) profile")
+    log(f"total {time.perf_counter() - started:.1f} s")
+
+    # 13. results
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: rows[i].get(k) for k in order} | {

@@ -2,27 +2,41 @@
 
     python -m diral_tpu_torch train       <config.yaml> [--slots N] [--seed S]
                                           [--num-envs B] [--workdir DIR]
+                                          [--resume] [--profile DIR]
                                           [--device cuda|cpu]
     python -m diral_tpu_torch eval        <config.yaml> [--steps N] [--seed S]
-                                          [--num-envs B] [--device cuda|cpu]
+                                          [--num-envs B] [--checkpoint DIR]
+                                          [--best] [--device cuda|cpu]
     python -m diral_tpu_torch compare-sps <config.yaml> [same options]
+    python -m diral_tpu_torch train-sweep <config.yaml> [--seeds S]
+                                          [--slots N] [--eval-steps N]
+                                          [--num-envs B] [--device cuda|cpu]
     python -m diral_tpu_torch train-ppo   <config.yaml> [--episodes N]
                                           [--seed S] [--num-envs B]
                                           [--device cuda|cpu]
     python -m diral_tpu_torch train-ps    <config.yaml> [--algo ps-dqn|ps-drqn]
                                           [--episodes N] [--seed S]
                                           [--num-envs B] [--device cuda|cpu]
+    python -m diral_tpu_torch profile     <config.yaml> [--slots N] [--top K]
+                                          [--dtype D] [--trace-dir DIR]
+                                          [--num-envs B] [--device cuda|cpu]
 
 ``train`` runs every simulation of the config (runner.run_all_simulations)
-and writes the reference-layout results under ``--workdir``.
+and writes the reference-layout results under ``--workdir``; ``--resume``
+continues from the latest checkpoint there (a cold start when there is
+none) and ``--profile DIR`` writes a torch.profiler Chrome trace of the run
+into DIR; the profiler holds every event of the run in host memory until
+it ends, so ``--profile`` is for short runs (``--slots``).  ``train-sweep`` trains seeds 0..S-1 (train/sweep.py) and prints
+one JSON row per seed; ``profile`` prints train/profiling.py's summary.
 ``train-ppo`` (train/ppo_loop.run_ppo) and ``train-ps``
 (train/ps_loop.run_ps; ``--algo`` defaults to the config's
 ``RLAgent.algorithm``) print one JSON line with the JAX verbs' keys.
-For ``eval`` and ``compare-sps`` the parameters come from ``drqn_init``
-with the port's generator seeded by ``--seed`` (the JAX verbs' behaviour
-without ``--checkpoint``); the rollout itself is seeded 1, as in the JAX
-verbs.  Runs on the CUDA device unless ``--device cpu``.  Other verbs
-come with later slices.
+``eval`` and ``compare-sps`` take the learner of ``--checkpoint DIR``'s
+latest checkpoint (``--best``: of ``DIR_best``, the best-reward snapshot);
+without one the parameters come from ``drqn_init`` with the port's
+generator seeded by ``--seed``.  The rollout itself is seeded 1, as in
+the JAX verbs.  Runs on the CUDA device unless ``--device cpu``.  The
+``serve`` verb comes with a later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import torch
 
@@ -49,13 +64,24 @@ def _load(args):
     return cfg
 
 
+def _ckpt_dir(args):
+    """--best swaps in the best-metric snapshot the runner keeps beside
+    the rolling checkpoints."""
+    if args.best:
+        return args.checkpoint.rstrip("/") + "_best"
+    return args.checkpoint
+
+
 def _params(args, cfg, device):
     from diral_tpu_torch.models.qnets import drqn_init
+    from diral_tpu_torch.train import checkpoint as ckpt
 
     if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: reading checkpoints is not ported yet "
-            "(ROADMAP Queue 1 item 4, Checkpoint)")
+        learner, step = ckpt.load_learner(_ckpt_dir(args), cfg, device)
+        print(f"loaded checkpoint at slot {step}")
+        return learner.params
+    if args.best:
+        raise ValueError("--best needs --checkpoint DIR")
     gen = torch.Generator(device=device).manual_seed(args.seed or 0)
     return drqn_init(gen, cfg.env.state_space, cfg.env.num_channels,
                      cfg.agent, _DTYPE[cfg.engine.dtype], device)
@@ -86,10 +112,7 @@ def cmd_compare_sps(args):
 
 
 # options of the JAX ``train`` verb that wait for their ROADMAP items
-_NOT_YET = {"resume": "Queue 1 item 4, Checkpoint",
-            "mesh": "Queue 1 item 9, Parallel",
-            "coordinator": "Queue 1 item 9, Parallel",
-            "profile": "Queue 1 item 10, Profiling"}
+_NOT_YET = {"mesh": "Queue 1, Parallel", "coordinator": "Queue 1, Parallel"}
 
 
 def cmd_train(args):
@@ -102,8 +125,55 @@ def cmd_train(args):
                 f"--{opt} is not ported yet (ROADMAP {item})")
     cfg = _load(args)
     dev = resolve_device(args.device)
-    run_all_simulations(cfg, workdir=args.workdir, seed=args.seed,
-                        dtype=_DTYPE[cfg.engine.dtype], device=dev)
+    kw = dict(workdir=args.workdir, seed=args.seed, resume=args.resume,
+              dtype=_DTYPE[cfg.engine.dtype], device=dev)
+    if not args.profile:
+        run_all_simulations(cfg, **kw)
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run_all_simulations(cfg, **kw)
+    os.makedirs(args.profile, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    print(f"profiler trace written to {args.profile}")
+
+
+def cmd_train_sweep(args):
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.train.evaluate import compare_drqn_vs_sps
+    from diral_tpu_torch.train.sweep import run_seed_sweep, split_seed
+
+    cfg = _load(args)
+    dev = resolve_device(args.device)
+    dtype = _DTYPE[cfg.engine.dtype]
+    seeds = list(range(args.seeds))
+    carries, logs = run_seed_sweep(cfg, seeds, dtype=dtype, device=dev)
+    sr = logs["sum_reward"][:, :, 0]          # [S, T]
+    tail = sr[:, -max(1, sr.shape[1] // 10):].mean(axis=1)
+    rows = []
+    for i, s in enumerate(seeds):
+        comp = compare_drqn_vs_sps(cfg, split_seed(carries, i).learner.params,
+                                   1, steps=args.eval_steps, dtype=dtype,
+                                   device=dev)
+        rows.append({"seed": s,
+                     "final_mean_sum_reward": round(float(tail[i]), 3),
+                     "drqn_prr": round(comp["drqn"]["mean_prr"], 4),
+                     "sps_prr": round(comp["sps"]["mean_prr"], 4),
+                     "prr_improvement": round(comp["prr_improvement"], 4)})
+    print(json.dumps(rows))
+
+
+def cmd_profile(args):
+    from diral_tpu_torch.train.profiling import profile_training
+
+    print(json.dumps(profile_training(
+        args.config, envs=args.num_envs or 16, slots=args.slots or 100,
+        top=args.top, dtype=args.dtype, trace_dir=args.trace_dir,
+        device=args.device)))
 
 
 def _reward_summary(sr) -> dict:
@@ -150,13 +220,14 @@ def main(argv=None):
     tp.add_argument("--workdir", default=".")
     tp.add_argument("--device", default=None, help="cuda (default) or cpu")
     tp.add_argument("--resume", action="store_true",
-                    help="not supported yet (ROADMAP Queue 1 item 4)")
+                    help="continue from the latest checkpoint in --workdir")
+    tp.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run into DIR "
+                         "(short runs: every event is held in memory)")
     tp.add_argument("--mesh", default=None,
-                    help="not supported yet (ROADMAP Queue 1 item 9)")
+                    help="not supported yet (ROADMAP Queue 1, Parallel)")
     tp.add_argument("--coordinator", default=None,
-                    help="not supported yet (ROADMAP Queue 1 item 9)")
-    tp.add_argument("--profile", default=None,
-                    help="not supported yet (ROADMAP Queue 1 item 10)")
+                    help="not supported yet (ROADMAP Queue 1, Parallel)")
     tp.set_defaults(fn=cmd_train)
     for name, fn, help_ in (
             ("eval", cmd_eval, "greedy evaluation of a DRQN"),
@@ -168,9 +239,34 @@ def main(argv=None):
         sp.add_argument("--steps", type=int, default=500)
         sp.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
-        sp.add_argument("--checkpoint", default=None,
-                        help="not supported yet (ROADMAP Queue 1 item 4)")
+        sp.add_argument("--checkpoint", default=None, metavar="DIR",
+                        help="evaluate the learner of DIR's latest "
+                             "checkpoint")
+        sp.add_argument("--best", action="store_true",
+                        help="use the best-reward snapshot (DIR_best) "
+                             "instead of the latest")
         sp.set_defaults(fn=fn)
+    sp = sub.add_parser("train-sweep",
+                        help="multi-seed training, one experiment per seed")
+    sp.add_argument("config")
+    sp.add_argument("--num-envs", type=int, default=None)
+    sp.add_argument("--slots", type=int, default=None)
+    sp.add_argument("--seeds", type=int, default=8,
+                    help="number of seeds (0..N-1)")
+    sp.add_argument("--eval-steps", type=int, default=500)
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_train_sweep)
+    sp = sub.add_parser("profile",
+                        help="per-kernel device profile of the training loop")
+    sp.add_argument("config")
+    sp.add_argument("--num-envs", type=int, default=None)
+    sp.add_argument("--slots", type=int, default=100)
+    sp.add_argument("--top", type=int, default=25)
+    sp.add_argument("--dtype", default="float32")
+    sp.add_argument("--trace-dir", default=None,
+                    help="write the Chrome trace here (default: none)")
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_profile)
     for name, fn, help_ in (
             ("train-ppo", cmd_train_ppo, "on-policy PPO training"),
             ("train-ps", cmd_train_ps,

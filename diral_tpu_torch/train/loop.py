@@ -370,7 +370,11 @@ class TrainFunctions:
         next_state = E.obtain_state(env, env_state, obs, actions, rewards,
                                     episode, float(eps_state.eps))
 
-        sum_r = rewards.sum(dim=1)
+        # on the CPU cumsum adds the users in index order, as XLA's CPU
+        # reduce does (torch.sum pairs them, one ULP off for PRR
+        # fractions); that order holds for CPU parity with JAX only, as
+        # CUDA's cumsum is a parallel scan
+        sum_r = torch.cumsum(rewards, dim=1)[:, -1]
         shaped = rewards
         sum_ia_prev = carry.sum_ia_prev
         if cfg.ia_averaging:
@@ -390,7 +394,9 @@ class TrainFunctions:
                 torch.tensor(cfg.ia_penalty_value, dtype=self.dtype,
                              device=shaped.device), shaped)
         if cfg.global_reward_avg:
-            shaped = shaped + (sum_r / self.N)[:, None]
+            # a product with the reciprocal, as XLA rewrites x / N; the
+            # quotient is one ULP away for N = 6 or 20
+            shaped = shaped + (sum_r * (1.0 / self.N))[:, None]
 
         carry.replay.add_lockstep(carry.state, actions, shaped)
         history = self.history_push(carry.history, next_state)

@@ -1,6 +1,5 @@
 """Result dumps and console telemetry, reference-layout compatible
-(the port's own copy of diral_tpu/train/metrics.py; ``load_arrays``, which
-serves --resume, comes with checkpoints).
+(the port's own copy of diral_tpu/train/metrics.py).
 
 The reference writes per-simulation npy arrays under
 ``save_results/test/<experiment>/``: per-slot summed reward, the action
@@ -49,3 +48,16 @@ class ResultWriter:
 
     def close(self):
         self._jsonl.close()
+
+    def load_arrays(self, upto: int | None = None):
+        """Load previously dumped arrays (for --resume continuity): returns
+        (rewards, actions, positions) truncated to ``upto`` slots, each None
+        when its file is absent."""
+        out = []
+        for stem in ("rewards", "actions", "positions"):
+            p = os.path.join(self.dir, f"{stem}_sim{self.sim}.npy")
+            a = np.load(p) if os.path.exists(p) else None
+            if a is not None and upto is not None:
+                a = a[:upto]
+            out.append(a)
+        return tuple(out)

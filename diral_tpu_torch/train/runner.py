@@ -1,21 +1,26 @@
 """Host-side experiment runner (diral_tpu/train/runner.py): chunks of slots
 on the device, the host reading the logs once per chunk to append them,
-print the reference-style episode line, write ``metrics_sim*.jsonl`` and
-dump the npy results every ``save_freq`` slots (main_test.py:238-258).
-The multi-simulation outer loop matches ``marl_test``'s
+print the reference-style episode line, write ``metrics_sim*.jsonl``, dump
+the npy results every ``save_freq`` slots (main_test.py:238-258) and
+checkpoint (main_test.py:260-264; train/checkpoint.py).  The
+multi-simulation outer loop matches ``marl_test``'s
 ``for simulation in range(simulations)`` (main_test.py:43-44).
 
-Not in this slice: checkpoints (``save_model``, ``resume``; ROADMAP
-Queue 1 item 4) and a device mesh (item 9) -- both raise.
+Not in this port yet: a device mesh (ROADMAP Queue 1, "Parallel") -- it
+raises.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
 
 from diral_tpu_torch.config import ExperimentConfig
 from diral_tpu_torch.device import resolve_device
+from diral_tpu_torch.train import checkpoint as ckpt
 from diral_tpu_torch.train.loop import Draws, make_train_functions
 from diral_tpu_torch.train.metrics import ResultWriter
 
@@ -37,6 +42,29 @@ def _chunk_logs(logs, dtype, device):
     return out
 
 
+def seeded_draws(cfg: ExperimentConfig, seed: int | None, simulation: int,
+                 device) -> Draws:
+    """A run's default draws: one generator on ``device`` seeded from
+    (seed, simulation), seed defaulting to the config's."""
+    base = cfg.engine.seed if seed is None else seed
+    return Draws(torch.Generator(device=device).manual_seed(
+        base * 1_000_003 + simulation))
+
+
+def run_chunks(fns, carry, draws: Draws, t: int, end: int, chunk: int,
+               dtype):
+    """The slot loop from slot ``t`` to ``end`` in chunks of ``chunk``:
+    yields (carry, slot after the chunk, the chunk's host logs)."""
+    while t < end:
+        n = min(chunk, end - t)
+        logs = []
+        for s in range(t, t + n):
+            carry, out = fns.slot_step(carry, s, draws)
+            logs.append(out)
+        t += n
+        yield carry, t, _chunk_logs(logs, dtype, fns.device)
+
+
 def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
                      seed: int | None = None, chunk_size: int | None = None,
                      resume: bool = False, simulation: int = 0,
@@ -44,16 +72,23 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
                      device=None, draws: Draws | None = None):
     """Run one simulation of the experiment on ``device`` (default CUDA).
     Returns (carry, logs dict of host arrays: sum_reward [T, B], actions
-    [T, B, N], loss [T], pos_x [T, B, N] when save_positions).  ``draws``
-    defaults to a generator seeded from (seed, simulation)."""
-    if resume or cfg.save_model:
-        raise NotImplementedError(
-            "checkpoints (save_model / --resume) are not ported yet "
-            "(ROADMAP Queue 1 item 4, Checkpoint)")
+    [T, B, N], loss [T], pos_x [T, B, N] when save_positions).
+
+    ``draws`` defaults to a generator seeded from (seed, simulation); that
+    generator's state is checkpointed with the carry, so ``resume``
+    continues the run bit for bit.  Draws the caller passes in are used
+    as given and not checkpointed.  With ``save_model`` or ``resume`` a
+    checkpoint is written to ``<workdir>/save_model/test/<experiment>``
+    every ``save_freq`` slots and at the end; ``save_model`` also keeps
+    the snapshot of the best all-env chunk-mean sum reward in ``<dir>_best``
+    with ``best_metric.json``.  ``resume`` on a directory without a
+    checkpoint is a cold start.  Simulation k > 0 checkpoints into
+    ``<experiment>_sim<k>``: the JAX package gives every simulation the
+    one directory, so a later simulation overwrites the first one's
+    checkpoints and resumes from its final slot."""
     if mesh is not None:
         raise NotImplementedError(
-            "a device mesh is not ported yet (ROADMAP Queue 1 item 9, "
-            "Parallel)")
+            "a device mesh is not ported yet (ROADMAP Queue 1, Parallel)")
     dev = resolve_device(device)
     trace = None
     if cfg.env.load_positions:
@@ -63,43 +98,85 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
             print(f"Load the saved positions !!! ({trace.shape})")
     fns = make_train_functions(cfg, dtype, dev, trace)
     chunk = chunk_size or max(1, min(cfg.save_freq, 5000))
+    gen = None
     if draws is None:
-        base = cfg.engine.seed if seed is None else seed
-        gen = torch.Generator(device=dev).manual_seed(
-            base * 1_000_003 + simulation)
-        draws = Draws(gen)
+        draws = seeded_draws(cfg, seed, simulation, dev)
+        gen = draws.gen
     carry = fns.init_carry(draws)
 
-    writer = ResultWriter(workdir, cfg.experiment_name or "experiment",
-                          simulation)
-    parts = []
+    name = cfg.experiment_name or "experiment"
+    ckpt_dir = os.path.join(workdir, "save_model", "test",
+                            name + (f"_sim{simulation}" if simulation else ""))
+    # the best-reward snapshot: greedy evaluation can take the policy
+    # from before a collapse at the greedy switch (eval --best)
+    best_dir = ckpt_dir + "_best"
+    marker = os.path.join(best_dir, "best_metric.json")
+    best_metric = float("-inf")
+    if cfg.save_model and resume and os.path.exists(marker):
+        with open(marker) as f:
+            best_metric = json.load(f)["mean_sum_reward"]
     t = 0
-    while t < cfg.time_slots:
-        n = min(chunk, cfg.time_slots - t)
-        logs = []
-        for s in range(t, t + n):
-            carry, out = fns.slot_step(carry, s, draws)
-            logs.append(out)
-        parts.append(_chunk_logs(logs, dtype, dev))
-        t += n
+    if resume:
+        # a restart loop passes --resume unconditionally: an empty
+        # checkpoint directory is a cold start, not an error
+        if ckpt.latest_step(ckpt_dir) is None:
+            if verbose:
+                print("no checkpoint yet; starting fresh")
+        else:
+            carry, t = ckpt.restore(ckpt_dir, carry, gen)
+            if verbose:
+                print(f"resumed from slot {t}")
 
-        eps = float(parts[-1]["eps"][-1])
-        mean_r = float(parts[-1]["sum_reward"][:, 0].mean())
+    writer = ResultWriter(workdir, name, simulation)
+    rewards, actions, positions, losses = [], [], [], []
+    if t > 0:
+        # the npy dumps cover the whole run: re-seed them with the slots
+        # already dumped; losses are not dumped, so those slots get NaN
+        prev_r, prev_a, prev_p = writer.load_arrays(upto=t)
+        if prev_r is not None:
+            rewards.append(prev_r)
+            losses.append(np.full((prev_r.shape[0],), np.nan, np.float32))
+        if prev_a is not None:
+            actions.append(prev_a)
+        if cfg.save_positions and prev_p is not None:
+            positions.append(prev_p)
+
+    for carry, t, logs in run_chunks(fns, carry, draws, t, cfg.time_slots,
+                                     chunk, dtype):
+        rewards.append(logs["sum_reward"])
+        actions.append(logs["actions"])
+        losses.append(logs["loss"])
+        if "pos_x" in logs:
+            positions.append(logs["pos_x"])
+        eps = float(logs["eps"][-1])
+        mean_r = float(logs["sum_reward"][:, 0].mean())
         if verbose:
             writer.episode_line(t - 1, eps, cfg.env.num_channels - mean_r,
                                 mean_r)
         writer.log({"slot": t, "eps": eps, "mean_sum_reward": mean_r,
-                    "loss": float(parts[-1]["loss"][-1])})
-        if cfg.save_results and (t % cfg.save_freq == 0
-                                 or t >= cfg.time_slots):
-            cat = {k: np.concatenate([p[k] for p in parts])
-                   for k in parts[0]}
-            writer.save_arrays(cat["sum_reward"], cat["actions"],
-                               cat.get("pos_x"))
+                    "loss": float(logs["loss"][-1])})
+        due = t % cfg.save_freq == 0 or t >= cfg.time_slots
+        if cfg.save_results and due:
+            writer.save_arrays(np.concatenate(rewards),
+                               np.concatenate(actions),
+                               np.concatenate(positions) if positions
+                               else None)
+        # a resumed run writes checkpoints too, or the next restart has
+        # nothing to load
+        if (cfg.save_model or resume) and due:
+            ckpt.save(ckpt_dir, t, carry, gen)
+            all_env_mean = float(logs["sum_reward"].mean())
+            if cfg.save_model and all_env_mean > best_metric:
+                best_metric = all_env_mean
+                ckpt.save(best_dir, t, carry, gen, max_to_keep=1)
+                with open(marker, "w") as f:
+                    json.dump({"step": t, "mean_sum_reward": best_metric}, f)
     writer.close()
-    out = {k: np.concatenate([p[k] for p in parts])
-           for k in ("sum_reward", "actions", "loss", "pos_x")
-           if k in parts[0]}
+    out = {"sum_reward": np.concatenate(rewards),
+           "actions": np.concatenate(actions),
+           "loss": np.concatenate(losses)}
+    if positions:
+        out["pos_x"] = np.concatenate(positions)
     return carry, out
 
 

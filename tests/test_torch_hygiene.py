@@ -9,6 +9,7 @@
 """
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -23,7 +24,8 @@ from diral_tpu_torch.ops import channel_phase as K5
 from diral_tpu_torch.ops import lanes_hist as K7
 from diral_tpu_torch.ops import lstm_window as K1
 from diral_tpu_torch.ops import piggy_hist as K6
-from diral_tpu_torch.train import evaluate, loop, ppo_loop, ps_loop, runner
+from diral_tpu_torch.train import (checkpoint, evaluate, loop, ppo_loop,
+                                   ps_loop, runner)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -52,7 +54,8 @@ def test_package_imports_no_jax():
                  "train.loop", "train.runner", "train.metrics", "convert",
                  "agents.ppo", "agents.dqn", "agents.ps_drqn",
                  "models.actor_critic", "train.ppo_loop", "train.ps_loop",
-                 "ops.lanes_hist"):
+                 "ops.lanes_hist", "train.checkpoint", "train.sweep",
+                 "train.profiling"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -126,7 +129,9 @@ def test_entry_points_default_to_cuda():
         assert out.returncode != 0 and "no CUDA device" in out.stderr, argv
 
 
-def test_cli_on_cpu_and_checkpoint_refused():
+def test_cli_on_cpu_and_checkpoint_refused(tmp_path):
+    """compare-sps on the CPU; eval of a checkpoint (no longer refused:
+    train/checkpoint.py) loads its learner."""
     out = subprocess.run(
         [sys.executable, "-m", "diral_tpu_torch", "compare-sps",
          "configs/toy_4ue_3r.yaml", "--steps", "3", "--num-envs", "2",
@@ -135,11 +140,21 @@ def test_cli_on_cpu_and_checkpoint_refused():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(res) == {"drqn", "sps", "prr_improvement"}
     assert 0.0 <= res["drqn"]["mean_prr"] <= 1.0
+    cfg = load_config(os.path.join(ROOT, "configs", "toy_4ue_3r.yaml"))
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine,
+                                                              num_envs=1))
+    gen = torch.Generator().manual_seed(0)
+    carry = loop.make_train_functions(cfg, device="cpu").init_carry(
+        loop.Draws(gen))
+    checkpoint.save(str(tmp_path), 0, carry, gen)
     out = subprocess.run(
         [sys.executable, "-m", "diral_tpu_torch", "eval",
-         "configs/toy_4ue_3r.yaml", "--device", "cpu", "--checkpoint", "x"],
+         "configs/toy_4ue_3r.yaml", "--device", "cpu", "--steps", "3",
+         "--checkpoint", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "Queue 1 item 4, Checkpoint" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert "loaded checkpoint at slot 0" in out.stdout
+    assert "mean_prr" in json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def _refuse(*_a, **_k):

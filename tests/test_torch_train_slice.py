@@ -13,8 +13,9 @@ test-side ``Draws`` that walks loop.py's key chain (loop.py:430, 435, 452,
   carry bit for bit.  The runner's chunks, cut across episodes or not,
   give the slot loop's results.
 * (j) The ``train`` verb on the CPU writes the reference-layout results;
-  without ``--device cpu`` (no GPU here) it raises, and the options that
-  wait for later slices raise naming their ROADMAP items.
+  without ``--device cpu`` (no GPU here) it raises; ``--resume`` starts
+  cold where no checkpoint is and continues otherwise; ``--mesh``, which
+  waits for a later slice, raises naming its ROADMAP item.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ from diral_tpu.train import loop as jloop
 from diral_tpu_torch.config import toy_4ue_3r as t_toy_4ue_3r
 from diral_tpu_torch.convert import train_carry_from_numpy
 from diral_tpu_torch.envs import v2v_env as tenv
+from diral_tpu_torch.models import qnets
 from diral_tpu_torch.train import loop as tloop
 from diral_tpu_torch.train import runner
 
@@ -94,18 +96,25 @@ def _t(a):
 
 
 class JaxChainDraws(tloop.Draws):
-    """The JAX package's draws, key for key: init from PRNGKey(SEED), slots
+    """The JAX package's draws, key for key: init from PRNGKey(seed), slots
     from the carried key (one split into (key, act, vel, train) per
-    slot)."""
+    slot).  ``jcfg`` (default the cut toy config) fixes B, N and C;
+    ``params`` (a JAX parameter tree as numpy) serves ``init_carry``'s
+    parameter draw."""
 
-    def __init__(self, slot_key):
+    def __init__(self, slot_key, jcfg=None, seed=SEED, slots=SLOTS,
+                 params=None):
+        self.jcfg = JCFG if jcfg is None else jcfg
+        self.B = self.jcfg.engine.num_envs
+        self.N, self.C = self.jcfg.env.num_users, self.jcfg.env.num_channels
+        self.tree = params
         k_env, k_act, k_pre, _, _ = jax.random.split(
-            jax.random.PRNGKey(SEED), 5)
+            jax.random.PRNGKey(seed), 5)
         self.k_env, self.k_act, self.k_pre = k_env, k_act, k_pre
-        self.n_pre = JCFG.pretrain_length * JCFG.step_size * 5
+        self.n_pre = (self.jcfg.pretrain_length * self.jcfg.step_size * 5)
         self.slot_keys = []
         key = slot_key
-        for _ in range(SLOTS):
+        for _ in range(slots):
             key, k_a, k_v, k_t = jax.random.split(key, 4)
             self.slot_keys.append((k_a, k_v, k_t))
 
@@ -114,14 +123,19 @@ class JaxChainDraws(tloop.Draws):
         return torch.device("cpu")
 
     def reset(self, env_cfg, num_envs, dtype):
-        js = jax.vmap(lambda k: jenv.reset(JCFG.env, k, jnp.float64))(
-            jax.random.split(self.k_env, B))
+        js = jax.vmap(lambda k: jenv.reset(self.jcfg.env, k, jnp.float64))(
+            jax.random.split(self.k_env, self.B))
         return tenv.EnvState(**{f: _t(getattr(js, f)) for f in FIELDS})
 
-    @staticmethod
-    def _sample(key):
+    def params(self, state_dim, num_actions, acfg, dtype):
+        return qnets.DRQN(
+            {g: {k: _t(v) for k, v in leaves.items()}
+             for g, leaves in self.tree.items()}, acfg)
+
+    def _sample(self, key):
+        N, C = self.N, self.C
         return _t(jax.vmap(lambda k: jax.random.randint(k, (N,), 0, C))(
-            jax.random.split(key, B)))
+            jax.random.split(key, self.B)))
 
     def warmup_actions(self, env_cfg, B_):
         return self._sample(self.k_act)
@@ -130,20 +144,28 @@ class JaxChainDraws(tloop.Draws):
         return self._sample(jax.random.split(self.k_pre, self.n_pre)[i])
 
     def _select_keys(self, t):
-        ks = jax.random.split(self.slot_keys[t][0], B)
+        ks = jax.random.split(self.slot_keys[t][0], self.B)
         return [jax.random.split(k) for k in ks]   # (ke, kp) per env
 
     def explore_actions(self, t, B_, N_, C_):
-        return _t(np.stack([jax.random.randint(ke, (N,), 0, C)
+        return _t(np.stack([jax.random.randint(ke, (self.N,), 0, self.C)
                             for ke, _ in self._select_keys(t)]))
 
     def eps_greedy(self, t, B_, N_, C_):
         draws, rands = [], []
         for _, kp in self._select_keys(t):
             kd, kr = jax.random.split(kp)
-            draws.append(np.asarray(jax.random.uniform(kd, (N,))))
-            rands.append(np.asarray(jax.random.randint(kr, (N,), 0, C)))
+            draws.append(np.asarray(jax.random.uniform(kd, (self.N,))))
+            rands.append(np.asarray(jax.random.randint(kr, (self.N,), 0,
+                                                       self.C)))
         return _t(np.stack(draws)), _t(np.stack(rands))
+
+    def velocity_kicks(self, t, B_, N_):
+        """update_velocity's draws: env b's kicks from split(k_vel, B)[b]
+        (loop.py's slot_core vmaps E.update_velocity over them)."""
+        N = self.N
+        return _t(jax.vmap(lambda k: jax.random.randint(k, (N,), 1, 4))(
+            jax.random.split(self.slot_keys[t][1], self.B)))
 
     def sampler_scores(self, t, n, BS):
         key, out = self.slot_keys[t][2], []
@@ -296,7 +318,12 @@ def test_cli_train_on_cpu(tmp_path):
     if not torch.cuda.is_available():
         bad = _cli(["train", str(cfg), "--workdir", str(tmp_path)])
         assert bad.returncode != 0 and "no CUDA device" in bad.stderr
-    bad = _cli(["train", str(cfg), "--device", "cpu", "--resume"])
-    assert bad.returncode != 0 and "Queue 1 item 4" in bad.stderr
+    # --resume: a cold start where no checkpoint is, then a continuation
+    resume = ["train", str(cfg), "--device", "cpu", "--workdir",
+              str(tmp_path), "--resume"]
+    ok = _cli(resume)
+    assert ok.returncode == 0 and "no checkpoint yet" in ok.stdout, ok.stderr
+    ok = _cli(resume)
+    assert ok.returncode == 0 and "resumed from slot 30" in ok.stdout
     bad = _cli(["train", str(cfg), "--device", "cpu", "--mesh", "data=2"])
-    assert bad.returncode != 0 and "Queue 1 item 9" in bad.stderr
+    assert bad.returncode != 0 and "Queue 1, Parallel" in bad.stderr
