@@ -89,6 +89,13 @@ failure exits non-zero:
        top_ops name the csrc kernels of K1, K2, K3, K5 and K6, its
        ``--trace-dir`` (a temporary directory) gets a Chrome trace; its
        category table;
+   (f) the full-schedule scripts (diral_tpu_torch/scripts): ``seed_campaign``
+       on the toy, 2 seeds x 600 slots, ``--save-freq 100``, a 20-slot
+       eval on 16 envs, uncut and then cut after seed 1's second
+       checkpoint and started again -- rows bit-equal apart from timings,
+       the finished seed not run again, the open one resumed from slot 200
+       --; ``full_run`` on 100v/50r (300 slots, a 20-slot eval) with
+       K1, K2, K3, K5 and K6 launched;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -1344,6 +1351,125 @@ def profile_phase(here, cli, failures):
         failures.append("profile verb")
 
 
+def campaign_phase(torch, np, here, zero_counts, peek_counts, failures):
+    """(f) The full-schedule scripts on the card.  ``seed_campaign`` on
+    the toy, 2 seeds x 600 slots (train events at 524-599), ``--save-freq
+    100``, a 20-slot eval on 16 envs: uncut, then cut by a checkpoint
+    write that raises after seed 1's second one and started again; the
+    rows must be bit-equal apart from their timing fields, the finished
+    seed must not run again and the open one must resume from slot 200.
+    Then ``full_run`` on 100v/50r, 300 slots with a 20-slot eval: finite
+    results of JAX's keys, K1, K2, K3, K5 and K6 launched."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from diral_tpu_torch.scripts import full_run, seed_campaign
+    from diral_tpu_torch.train import checkpoint as ckpt
+
+    def quiet(fn, argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(argv)
+
+    def results(rows):
+        return [{k: v for k, v in r.items()
+                 if k not in seed_campaign.RUN_FIELDS} for r in rows]
+
+    toy = os.path.join(here, "configs", "toy_4ue_3r.yaml")
+    root = tempfile.mkdtemp(prefix="diral_campaign_")
+    args = ["--seeds", "2", "--slots", "600", "--save-freq", "100",
+            "--eval-steps", "20", "--eval-envs", "16"]
+    real_save, real_run = ckpt.save, full_run.run
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        uncut = quiet(seed_campaign.main, [
+            toy, os.path.join(root, "uncut.json"), *args, "--workdir",
+            os.path.join(root, "uncut")])
+        t_uncut = time.perf_counter() - t0
+        counts = peek_counts()
+        saves, ran = [], []
+
+        def cutting_save(directory, step, *a, **k):
+            path = real_save(directory, step, *a, **k)
+            if f"{os.sep}seed1{os.sep}" in str(directory):
+                saves.append(step)
+                if len(saves) == 2:
+                    raise RuntimeError("cut after seed 1's second checkpoint")
+            return path
+
+        def spy(*a, **k):
+            ran.append(k["seed"])
+            return real_run(*a, **k)
+
+        cut_argv = [toy, os.path.join(root, "cut.json"), *args, "--workdir",
+                    os.path.join(root, "cut")]
+        ckpt.save = cutting_save
+        t0 = time.perf_counter()
+        try:
+            quiet(seed_campaign.main, cut_argv)
+            was_cut = False
+        except RuntimeError:
+            was_cut = True
+        finally:
+            ckpt.save = real_save
+        full_run.run = spy
+        try:
+            again = quiet(seed_campaign.main, cut_argv)
+        finally:
+            full_run.run = real_run
+        t_cut = time.perf_counter() - t0
+        same = results(again["rows"]) == results(uncut["rows"])
+        resumed = [r["resumed_from"] for r in again["rows"]]
+        ok = (was_cut and same and ran == [1] and resumed == [[], [200]]
+              and saves == [100, 200]
+              and all(counts[k] >= 8 for k in ("K1", "K2", "K3"))
+              and finite(np, [r["prr_improvement"] for r in uncut["rows"]]))
+        log(f"seed_campaign toy x 2 seeds x 600 slots (--save-freq 100, "
+            f"eval 20 x 16 envs): uncut {t_uncut:.2f} s, cut at seed 1's "
+            f"slot 200 and restarted {t_cut:.2f} s; rows "
+            f"{'bit-equal' if same else 'DIFFER'} apart from timings, "
+            f"seeds run on restart {ran}, resumed_from {resumed}; "
+            f"launches in the uncut campaign {counts}; ΔPRR "
+            f"{[r['prr_improvement'] for r in uncut['rows']]}, slots/s "
+            f"{[r['slots_per_sec'] for r in uncut['rows']]} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("seed_campaign cut and restarted")
+
+        zero_counts()
+        t0 = time.perf_counter()
+        summ = quiet(full_run.main, [
+            os.path.join(here, "configs", "scale_100v_50r.yaml"),
+            os.path.join(root, "scale"), "--slots", "300", "--eval-steps",
+            "20"])
+        t_scale = time.perf_counter() - t0
+        counts = peek_counts()
+        comp = summ["compare_vs_sps"]
+        ok = (set(summ) >= {"config", "time_slots", "train_seconds",
+                            "slots_per_sec", "reward_curve_deciles",
+                            "compare_vs_sps", "eval_seconds"}
+              and len(summ["reward_curve_deciles"]) == 10
+              and finite(np, summ["reward_curve_deciles"],
+                         comp["prr_improvement"])
+              and all(0.0 <= comp[p]["mean_prr"] <= 1.0
+                      for p in ("drqn", "sps"))
+              and all(counts[k] > 0 for k in ("K1", "K2", "K3", "K5", "K6")))
+        log(f"full_run 100v/50r x 16 envs, 300 slots, eval 20 x 16 envs: "
+            f"{t_scale:.2f} s (build {summ['build_seconds']} s, init "
+            f"{summ['init_seconds']} s, loop {summ['loop_seconds']} s, eval "
+            f"{summ['eval_seconds']} s); DRQN PRR "
+            f"{comp['drqn']['mean_prr']:.4f}, SPS PRR "
+            f"{comp['sps']['mean_prr']:.4f}; launches {counts} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("full_run 100v/50r")
+    finally:
+        ckpt.save, full_run.run = real_save, real_run
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1792,6 +1918,10 @@ def main() -> int:
     mark("(d) train-sweep")
     profile_phase(here, cli, failures)
     mark("(e) profile")
+    campaign_phase(torch, np, here, zero_counts,
+                   lambda: {k: fn.launches for k, fn in
+                            train_wrappers.items()}, failures)
+    mark("(f) seed_campaign and full_run")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

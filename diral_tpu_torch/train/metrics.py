@@ -27,12 +27,19 @@ class ResultWriter:
         self._jsonl = open(os.path.join(self.dir, f"metrics_sim{simulation}.jsonl"), "a")
 
     def save_arrays(self, rewards, actions, positions=None) -> None:
-        """npy dumps with the reference's filenames (main_test.py:248-255)."""
-        np.save(os.path.join(self.dir, f"rewards_sim{self.sim}"), np.asarray(rewards))
-        np.save(os.path.join(self.dir, f"actions_sim{self.sim}"), np.asarray(actions))
+        """npy dumps with the reference's filenames (main_test.py:248-255).
+        Each is written to a temporary file and renamed into place, so a
+        run killed mid-write leaves the previous dump whole for --resume."""
+        self._save("rewards", rewards)
+        self._save("actions", actions)
         if positions is not None and np.asarray(positions).size:
-            np.save(os.path.join(self.dir, f"positions_sim{self.sim}"),
-                    np.asarray(positions))
+            self._save("positions", positions)
+
+    def _save(self, stem: str, array) -> None:
+        path = os.path.join(self.dir, f"{stem}_sim{self.sim}.npy")
+        with open(path + ".tmp", "wb") as f:
+            np.save(f, np.asarray(array))
+        os.replace(path + ".tmp", path)
 
     def episode_line(self, time_step: int, eps: float, cum_collision: float,
                      cum_reward: float) -> None:

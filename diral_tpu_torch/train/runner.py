@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -65,11 +66,20 @@ def run_chunks(fns, carry, draws: Draws, t: int, end: int, chunk: int,
         yield carry, t, _chunk_logs(logs, dtype, fns.device)
 
 
+def checkpoint_dir(cfg: ExperimentConfig, workdir: str,
+                   simulation: int = 0) -> str:
+    """Where ``train_experiment`` checkpoints simulation ``simulation``."""
+    name = cfg.experiment_name or "experiment"
+    return os.path.join(workdir, "save_model", "test",
+                        name + (f"_sim{simulation}" if simulation else ""))
+
+
 def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
                      seed: int | None = None, chunk_size: int | None = None,
                      resume: bool = False, simulation: int = 0,
                      dtype=torch.float32, verbose: bool = True, mesh=None,
-                     device=None, draws: Draws | None = None):
+                     device=None, draws: Draws | None = None,
+                     timing: dict | None = None):
     """Run one simulation of the experiment on ``device`` (default CUDA).
     Returns (carry, logs dict of host arrays: sum_reward [T, B], actions
     [T, B, N], loss [T], pos_x [T, B, N] when save_positions).
@@ -85,7 +95,15 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
     checkpoint is a cold start.  Simulation k > 0 checkpoints into
     ``<experiment>_sim<k>``: the JAX package gives every simulation the
     one directory, so a later simulation overwrites the first one's
-    checkpoints and resumes from its final slot."""
+    checkpoints and resumes from its final slot.
+
+    ``timing``, when given, receives the slot the loop started from
+    (``start_slot``: 0, or the restored checkpoint's), ``init_seconds``
+    (from the call to the first slot: the carry's init, warmup, pretrain
+    and any restore) and ``loop_seconds`` (the slot loop, its checkpoint
+    writes included); each chunk's host read of its logs ends its device
+    work, so the two add up to the call's wall time."""
+    started = time.perf_counter()
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh is not ported yet (ROADMAP Queue 1, Parallel)")
@@ -105,8 +123,7 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
     carry = fns.init_carry(draws)
 
     name = cfg.experiment_name or "experiment"
-    ckpt_dir = os.path.join(workdir, "save_model", "test",
-                            name + (f"_sim{simulation}" if simulation else ""))
+    ckpt_dir = checkpoint_dir(cfg, workdir, simulation)
     # the best-reward snapshot: greedy evaluation can take the policy
     # from before a collapse at the greedy switch (eval --best)
     best_dir = ckpt_dir + "_best"
@@ -141,6 +158,7 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
         if cfg.save_positions and prev_p is not None:
             positions.append(prev_p)
 
+    start_slot, looped = t, time.perf_counter()
     for carry, t, logs in run_chunks(fns, carry, draws, t, cfg.time_slots,
                                      chunk, dtype):
         rewards.append(logs["sum_reward"])
@@ -153,8 +171,10 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
         if verbose:
             writer.episode_line(t - 1, eps, cfg.env.num_channels - mean_r,
                                 mean_r)
+        # "seconds": this start's slot loop so far (the port's addition)
         writer.log({"slot": t, "eps": eps, "mean_sum_reward": mean_r,
-                    "loss": float(logs["loss"][-1])})
+                    "loss": float(logs["loss"][-1]),
+                    "seconds": round(time.perf_counter() - looped, 3)})
         due = t % cfg.save_freq == 0 or t >= cfg.time_slots
         if cfg.save_results and due:
             writer.save_arrays(np.concatenate(rewards),
@@ -172,6 +192,10 @@ def train_experiment(cfg: ExperimentConfig, workdir: str = ".",
                 with open(marker, "w") as f:
                     json.dump({"step": t, "mean_sum_reward": best_metric}, f)
     writer.close()
+    if timing is not None:
+        timing.update(start_slot=start_slot,
+                      init_seconds=looped - started,
+                      loop_seconds=time.perf_counter() - looped)
     out = {"sum_reward": np.concatenate(rewards),
            "actions": np.concatenate(actions),
            "loss": np.concatenate(losses)}

@@ -55,7 +55,8 @@ def test_package_imports_no_jax():
                  "agents.ppo", "agents.dqn", "agents.ps_drqn",
                  "models.actor_critic", "train.ppo_loop", "train.ps_loop",
                  "ops.lanes_hist", "train.checkpoint", "train.sweep",
-                 "train.profiling"):
+                 "train.profiling", "scripts.full_run",
+                 "scripts.seed_campaign"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
