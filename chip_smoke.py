@@ -96,6 +96,15 @@ failure exits non-zero:
        the finished seed not run again, the open one resumed from slot 200
        --; ``full_run`` on 100v/50r (300 slots, a 20-slot eval) with
        K1, K2, K3, K5 and K6 launched;
+   (g) online serving (diral_tpu_torch/interop): the port's C++ RealNeS
+       stand-in built from the checkout (g++, no protobuf), then the
+       ``serve`` verb at 8 users / 6 channels: ``--mode compare`` for 200
+       rounds, ``ps-dqn`` and ``drqn-rssi`` for 100 each (framed; zmq
+       too where pyzmq imports and libzmq.so.5 loads), each with finite
+       stats and losses, rounds / 10 train calls and its learner on the
+       card, its requests/s and host ms per request (waiting on the
+       simulator, inference, training); no K1-K7 launch; a torch.profiler
+       pass over 40 rounds for the device's busy share per request;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -1470,6 +1479,150 @@ def campaign_phase(torch, np, here, zero_counts, peek_counts, failures):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
+                compare_rounds=200, rounds=100):
+    """(g) Online serving on the card: the port's C++ RealNeS stand-in
+    built from the checkout, then the ``serve`` verb (8 users, 6 channels,
+    ``--train-every 10 --n-batches 4 --eps 0.5``) in ``compare`` mode for
+    ``compare_rounds`` rounds and in ``ps-dqn`` and ``drqn-rssi`` modes
+    for ``rounds`` each, over the framed transport (and over zmq where
+    pyzmq imports and the simulator can load libzmq.so.5).  Each run must
+    give finite stats and losses, rounds / train_every train calls and a
+    learner whose every tensor is on the card; it prints its requests/s
+    and the host ms per request spent waiting on the simulator, in
+    inference and in training.  A torch.profiler pass over 40 rounds of
+    ``drqn`` gives the device's busy share per request.  The serve path
+    launches none of K1-K7: their counters must stay at 0."""
+    from diral_tpu_torch.interop import gateway_env, serve
+    from diral_tpu_torch.interop.transport import libzmq_error
+    from diral_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    binary = gateway_env.build_simulator()
+    log(f"serve: simulator {os.path.relpath(binary, here)} ready in "
+        f"{time.perf_counter() - t0:.2f} s (g++ -O2, wire.h codec)")
+    spied = []
+    real = {"serve_and_learn": serve.serve_and_learn,
+            "serve_and_learn_dqn": serve.serve_and_learn_dqn}
+
+    def spy(fn):
+        def wrapped(*a, **k):
+            learner, stats = fn(*a, **k)
+            spied.append((learner, dict(stats)))
+            return learner, stats
+        return wrapped
+
+    def tensors(learner):
+        """The nets and Adam's moments (Adam keeps its step count on the
+        host unless asked for a fused or capturable step)."""
+        yield from learner.params.parameters()
+        yield from learner.target_params.parameters()
+        for st in learner.opt.state.values():
+            yield from (v for k, v in st.items()
+                        if k != "step" and isinstance(v, torch.Tensor))
+
+    def per_request(timing):
+        n = max(timing["requests"], 1)
+        return (f"{timing['requests'] / timing['seconds']:.1f} requests/s; "
+                f"host ms/request: sim {1e3 * timing['wait_s'] / n:.4f}, "
+                f"inference {1e3 * timing['infer_s'] / n:.4f}, training "
+                f"{1e3 * timing['train_s'] / n:.4f}, total "
+                f"{1e3 * timing['seconds'] / n:.4f}")
+
+    zmq_why = libzmq_error()
+    try:
+        import zmq  # noqa: F401
+    except ImportError:
+        zmq_why = "pyzmq is not installed"
+    runs = [("compare", compare_rounds, "framed"), ("ps-dqn", rounds, "framed"),
+            ("drqn-rssi", rounds, "framed")]
+    if zmq_why is None:
+        runs.append(("drqn", rounds, "zmq"))
+    else:
+        log(f"serve --transport zmq: not run ({zmq_why})")
+    serve.serve_and_learn = spy(real["serve_and_learn"])
+    serve.serve_and_learn_dqn = spy(real["serve_and_learn_dqn"])
+    try:
+        zero_counts()
+        for mode, n_rounds, transport in runs:
+            spied.clear()
+            argv = ["serve", "--mode", mode, "--users", "8", "--channels",
+                    "6", "--rounds", str(n_rounds), "--train-every", "10",
+                    "--n-batches", "4", "--eps", "0.5", "--transport",
+                    transport]
+            t0 = time.perf_counter()
+            _, res = cli_json(cli, argv)
+            wall = time.perf_counter() - t0
+            learned = res and (res["drqn"] if mode == "compare" else res)
+            bad = []
+            if learned is None or len(spied) != 1:
+                bad.append("no result")
+            else:
+                losses = spied[0][1]["losses"]
+                if not finite(np, learned["mean_reward"],
+                              learned["mean_prr"], learned["mean_prr_tail"],
+                              losses):
+                    bad.append("non-finite stats or losses")
+                if (learned["train_calls"] != n_rounds // 10
+                        or len(losses) != n_rounds // 10):
+                    bad.append("train calls")
+                if not all(t.device.type == "cuda"
+                           for t in tensors(spied[0][0])):
+                    bad.append("a learner tensor off the card")
+                if mode == "compare" and not finite(
+                        np, res["prr_improvement"],
+                        res["sps"]["mean_prr_tail"]):
+                    bad.append("non-finite SPS stats")
+            ok = not bad
+            parts = [("learner", learned)] if learned else []
+            if learned and mode == "compare":
+                parts.append(("sps", res["sps"]))
+            for who, stats in parts:
+                log(f"serve --mode {mode} --transport {transport} "
+                    f"({n_rounds} rounds x 8 users, {who}): "
+                    + per_request(stats["timing"]))
+            log(f"serve --mode {mode} --transport {transport}: {wall:.2f} s, "
+                + (f"mean PRR {learned['mean_prr']:.4f}, tail "
+                   f"{learned['mean_prr_tail']:.4f}, train calls "
+                   f"{learned['train_calls']}, last loss "
+                   f"{spied[0][1]['losses'][-1]:.5f}" if learned else
+                   "no result")
+                + (f"; SPS tail {res['sps']['mean_prr_tail']:.4f}, ΔPRR "
+                   f"{res['prr_improvement']:+.4f}"
+                   if learned and mode == "compare" else "")
+                + (" ok" if ok else f" FAIL ({', '.join(bad)})"))
+            if not ok:
+                failures.append(f"serve --mode {mode} --transport {transport}")
+        counts = peek_counts()
+        log(f"serve: K1-K7 launches over the serve runs {counts} "
+            f"{'ok' if not any(counts.values()) else 'FAIL'}")
+        if any(counts.values()):
+            failures.append("serve path launched a K kernel")
+    finally:
+        serve.serve_and_learn = real["serve_and_learn"]
+        serve.serve_and_learn_dqn = real["serve_and_learn_dqn"]
+
+    # where a served request's time goes on the device: 40 rounds of
+    # PS-DRQN in dist mode (4 train calls), the CLI's default agent
+    acfg = serve.tuned_agent()
+    env = gateway_env.GatewayEnv(port=0, sim_start=True, sim_users=8,
+                                 sim_channels=6, sim_rounds=45, sim_seed=1,
+                                 state_design=2, pos_dist=2, reward_design=2)
+    try:
+        wall_ms, prow, busy = device_profile(
+            torch, lambda: serve.serve_and_learn(
+                env, acfg, 40, train_every=10, n_batches=4, eps=0.5,
+                eps_final=0.02, seed=1), 320)
+        env.bridge.restart_env()
+        env.sim_process.wait(timeout=10)
+        env.sim_process = None
+    finally:
+        env.close()
+    log_profile("profile serve --mode drqn, 40 rounds x 8 users (profiler "
+                "on)", "request", wall_ms, prow, busy, 6)
+    log(f"serve: {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1922,6 +2075,10 @@ def main() -> int:
                    lambda: {k: fn.launches for k, fn in
                             train_wrappers.items()}, failures)
     mark("(f) seed_campaign and full_run")
+    serve_phase(torch, np, here, card, zero_counts,
+                lambda: {k: fn.launches for k, fn in
+                         train_wrappers.items()}, failures)
+    mark("(g) serve")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

@@ -20,6 +20,15 @@
     python -m diral_tpu_torch profile     <config.yaml> [--slots N] [--top K]
                                           [--dtype D] [--trace-dir DIR]
                                           [--num-envs B] [--device cuda|cpu]
+    python -m diral_tpu_torch serve       [--mode drqn|drqn-rssi|ps-dqn|sps|
+                                          compare] [--config YAML]
+                                          [--users U] [--channels C]
+                                          [--rounds R] [--train-every K]
+                                          [--n-batches N] [--eps E]
+                                          [--eps-final E] [--reward-design D]
+                                          [--distance-reward] [--port P]
+                                          [--transport framed|zmq]
+                                          [--seed S] [--device cuda|cpu]
 
 ``train`` runs every simulation of the config (runner.run_all_simulations)
 and writes the reference-layout results under ``--workdir``; ``--resume``
@@ -35,8 +44,11 @@ one JSON row per seed; ``profile`` prints train/profiling.py's summary.
 latest checkpoint (``--best``: of ``DIR_best``, the best-reward snapshot);
 without one the parameters come from ``drqn_init`` with the port's
 generator seeded by ``--seed``.  The rollout itself is seeded 1, as in
-the JAX verbs.  Runs on the CUDA device unless ``--device cpu``.  The
-``serve`` verb comes with a later slice.
+the JAX verbs.  ``serve`` serves the port's C++ RealNeS stand-in
+(interop/serve.py, the simulator built into build/ at first use) and
+prints one JSON line of stats with the JAX verb's keys (plus ``timing``);
+``--transport zmq`` needs pyzmq and a loadable libzmq.so.5.  Every verb
+runs on the CUDA device unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -208,6 +220,61 @@ def cmd_train_ps(args):
                       "final_eps": float(logs["eps"][-1])}))
 
 
+def cmd_serve(args):
+    """Online serving against the port's C++ RealNeS stand-in: the
+    reference's intended-but-never-runnable external-simulator mode
+    (main_test.py:291-293 hard-disables it)."""
+    from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.interop.gateway_env import GatewayEnv
+    from diral_tpu_torch.interop.serve import (compare_sps_over_gateway,
+                                               serve_and_learn,
+                                               serve_and_learn_dqn, serve_sps,
+                                               tuned_agent)
+
+    dev = resolve_device(args.device)
+    acfg = load_config(args.config).agent if args.config else tuned_agent()
+
+    seed = args.seed or 0
+    if args.mode == "compare":
+        print(json.dumps(compare_sps_over_gateway(
+            acfg, sim_users=args.users, sim_channels=args.channels,
+            rounds=args.rounds, train_every=args.train_every,
+            n_batches=args.n_batches, eps=args.eps,
+            eps_final=args.eps_final, seed=seed,
+            transport=args.transport, device=dev)))
+        return
+
+    sim_mode = {"drqn": "dist", "drqn-rssi": "syn", "ps-dqn": "syn",
+                "sps": "sps"}[args.mode]
+    env = GatewayEnv(port=args.port, sim_start=True, sim_users=args.users,
+                     sim_channels=args.channels, sim_rounds=args.rounds + 5,
+                     sim_seed=seed, sim_mode=sim_mode, state_design=2,
+                     pos_dist=2, reward_design=args.reward_design,
+                     distance_based_reward=args.distance_reward,
+                     sim_transport=args.transport)
+    try:
+        if args.mode == "sps":
+            print(json.dumps(serve_sps(env, args.rounds, seed=seed,
+                                       device=dev)))
+            return
+        if args.mode == "ps-dqn":
+            _, stats = serve_and_learn_dqn(
+                env, acfg, args.rounds, train_every=args.train_every,
+                n_batches=args.n_batches, eps=args.eps,
+                eps_final=args.eps_final, seed=seed, device=dev)
+        else:
+            _, stats = serve_and_learn(
+                env, acfg, args.rounds, train_every=args.train_every,
+                n_batches=args.n_batches, eps=args.eps,
+                eps_final=args.eps_final, seed=seed, mode=sim_mode,
+                device=dev)
+        stats["losses"] = stats["losses"][-5:]
+        print(json.dumps(stats))
+    finally:
+        env.close()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="diral_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -283,6 +350,35 @@ def main(argv=None):
                             default=None,
                             help="defaults to the config's RLAgent.algorithm")
         sp.set_defaults(fn=fn)
+    sp = sub.add_parser(
+        "serve", help="online serving against the C++ RealNeS stand-in")
+    sp.add_argument("--config", default=None,
+                    help="optional YAML for the agent section")
+    sp.add_argument("--mode", default="drqn",
+                    choices=["drqn", "drqn-rssi", "ps-dqn", "sps", "compare"],
+                    help="drqn: neighbor-table states; drqn-rssi: RSSI "
+                         "states; ps-dqn: feedforward PS-DQN on RSSI "
+                         "states; sps: the SPS baseline online; compare: "
+                         "DIRAL-vs-SPS tail PRR on the same world seed")
+    sp.add_argument("--users", type=int, default=8)
+    sp.add_argument("--channels", type=int, default=6)
+    sp.add_argument("--rounds", type=int, default=400)
+    sp.add_argument("--train-every", type=int, default=10)
+    sp.add_argument("--n-batches", type=int, default=4)
+    sp.add_argument("--eps", type=float, default=0.5)
+    sp.add_argument("--eps-final", type=float, default=0.02)
+    sp.add_argument("--reward-design", type=int, default=2)
+    sp.add_argument("--distance-reward", action="store_true",
+                    help="rewards from reported positions "
+                         "(realness_env.py:120-191) instead of PRR")
+    sp.add_argument("--port", type=int, default=0)
+    sp.add_argument("--transport", default="framed",
+                    choices=["framed", "zmq"],
+                    help="wire flavor for bridge AND simulator: "
+                         "length-prefixed TCP or real libzmq")
+    sp.add_argument("--seed", type=int, default=None)
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_serve)
     args = p.parse_args(argv)
     args.fn(args)
 

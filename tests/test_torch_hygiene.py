@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from diral_tpu_torch.config import load_config
+from diral_tpu_torch.interop import serve
 from diral_tpu_torch.ops import _build
 from diral_tpu_torch.ops import channel_phase as K5
 from diral_tpu_torch.ops import lanes_hist as K7
@@ -56,7 +57,9 @@ def test_package_imports_no_jax():
                  "models.actor_critic", "train.ppo_loop", "train.ps_loop",
                  "ops.lanes_hist", "train.checkpoint", "train.sweep",
                  "train.profiling", "scripts.full_run",
-                 "scripts.seed_campaign"):
+                 "scripts.seed_campaign", "interop.transport",
+                 "interop.bridge", "interop.gateway_env", "interop.serve",
+                 "interop.wire", "scripts.serve_campaign"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -76,6 +79,23 @@ def test_sources_import_no_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert not [n for n in names if _forbidden(n)], names
+
+
+def test_sim_builds_under_build_dir():
+    """The port's simulator builds from the port's own sources into the
+    ignored build/ directory, never into a package's source tree."""
+    from diral_tpu_torch.interop import gateway_env
+
+    binary = gateway_env.sim_binary()
+    build = os.path.join(ROOT, "build")
+    assert os.path.commonpath([str(binary), build]) == build
+    for pkg in ("diral_tpu", "diral_tpu_torch"):
+        assert not str(binary).startswith(os.path.join(ROOT, pkg) + os.sep)
+    assert str(gateway_env.CPP_DIR) == os.path.join(
+        ROOT, "diral_tpu_torch", "interop", "cpp")
+    ignored = subprocess.run(["git", "check-ignore", "-q", str(binary)],
+                             cwd=ROOT)
+    assert ignored.returncode == 0
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -116,14 +136,18 @@ def test_entry_points_default_to_cuda():
                  lambda: evaluate.compare_ppo_vs_sps(ppo_cfg, None, 0,
                                                      steps=1),
                  lambda: evaluate.compare_ps_vs_sps(ps_cfg, None, 0, steps=1,
-                                                    algo="ps-drqn")):
+                                                    algo="ps-drqn"),
+                 lambda: serve.serve_sps(None, 1),
+                 lambda: serve.serve_and_learn(None, None, 1),
+                 lambda: serve.serve_and_learn_dqn(None, None, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     for argv in (["eval", "configs/toy_4ue_3r.yaml", "--steps", "1"],
                  ["train-ppo", "configs/ppo_congested.yaml", "--episodes",
                   "1"],
                  ["train-ps", "configs/congested_6v_5r.yaml", "--algo",
-                  "ps-dqn", "--episodes", "1"]):
+                  "ps-dqn", "--episodes", "1"],
+                 ["serve", "--mode", "sps", "--rounds", "1"]):
         out = subprocess.run([sys.executable, "-m", "diral_tpu_torch", *argv],
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
