@@ -105,6 +105,19 @@ failure exits non-zero:
        card, its requests/s and host ms per request (waiting on the
        simulator, inference, training); no K1-K7 launch; a torch.profiler
        pass over 40 rounds for the device's busy share per request;
+   (h) the measurement entry points (diral_tpu_torch/bench.py and
+       scripts/{bench_event,kernel_ceiling}.py) at cut lengths: the
+       headline (8192 toy envs x 32 steps), kernel parity in full, the
+       100v/50r engine (2048 envs x 8 steps), the toy training loop (256
+       envs, 4 chunks of 50 slots from slot 612, float32 with its
+       training-off split, then bf16), ``bench_event`` (R = 4) and
+       ``kernel_ceiling`` at the toy shape; the JSON keys must equal the
+       JAX scripts', every rate be finite and positive, parity pass, and
+       the launch counters read per section: none of K1-K7 on the toy
+       headline, K5 and K6 on the 100v/50r engine, K1, K2 and K3 on the
+       train loop, K1-K4 in ``bench_event`` and ``kernel_ceiling``;
+       then the device's busy share under torch.profiler of headline,
+       scale and train-loop steps and of K1 + K3 at the toy event shape;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -122,10 +135,11 @@ import subprocess
 import sys
 import time
 
+# the card's peaks and one bf16 step: one copy, in the bench module
+from diral_tpu_torch.bench import (
+    BF16_PEAK, F32_PEAK, HBM_BYTES_PER_S, bf16_ulp)
+
 STEPS = 300
-BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
-F32_PEAK = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -258,13 +272,6 @@ def ptxas_stats(report):
     return out
 
 
-def bf16_ulp(torch, v):
-    """One bf16 step at the magnitude of ``v``."""
-    return torch.ldexp(torch.ones_like(v),
-                       torch.floor(torch.log2(v.abs().clamp(min=1e-30)))
-                       .int() - 7)
-
-
 def lstm_train_inputs(torch, np, K1, dev, B, D, H, steps, seed, dtype):
     """Online and target LSTM weights, a flat window of ``steps`` steps
     and a cotangent of h, from a numpy seed."""
@@ -303,7 +310,7 @@ def k3_gaps(torch, grads, plain, D):
         abs_g = max(abs_g, float(gap.max()))
         allow = 1e-3 * scale
         if bf16:
-            allow = allow + bf16_ulp(torch, want)
+            allow = allow + bf16_ulp(want)
         ok &= bool((gap <= allow).all())
     return rel, ok, abs_g
 
@@ -405,7 +412,7 @@ def fwd_check(torch, K1, label, x2c, w, b, wt, bt, T, failures):
         got, want = got.float(), want.float()
         gap = (got - want).abs()
         err[k] = max(err[k], float(gap.max()))
-        ok &= bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
+        ok &= bool((gap <= 1e-4 + bf16_ulp(want)).all())
         ok &= float(gap.median()) < 1e-6
     plans = "; ".join(
         f"{k} {p.bm} rows x {p.blocks} blocks, {p.smem} B shared"
@@ -522,7 +529,7 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
     want = K1.lstm_last_flat_plain(x2, w, b, T)
     torch.cuda.synchronize()
     gap = (got - want).abs()
-    ok = bool((gap <= 1e-4 + bf16_ulp(torch, want)).all()
+    ok = bool((gap <= 1e-4 + bf16_ulp(want)).all()
               and float(gap.median()) < 1e-6)
     refused = []
     for name, call in (("K2", lambda: K1.lstm_last_flat_triple(
@@ -1623,6 +1630,171 @@ def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
     log(f"serve: {card}")
 
 
+# the root bench.py's and scripts' JSON keys, in their order
+# (tests/test_torch_bench.py holds these lists against the JAX sources)
+JAX_BENCH_KEYS = [
+    "metric", "value", "unit", "vs_baseline", "device_init_s", "compile_s",
+    "value_min", "spread", "dispatch_latency_ms", "scale_env_steps_per_sec",
+    "train_slots_per_sec", "train_slots_per_sec_bf16"]
+JAX_EVENT_KEYS = [
+    "dtype", "shape", "event_ms", "sampler_ms", "target_ms",
+    "grad_presampled_ms", "grad_fused_ms", "adam_ms", "kernel_fwd_ms",
+    "kernel_dual_ms", "kernel_triple_ms", "kernel_fwdbwd_ms",
+    "kernel_fwd_tflops", "kernel_dual_tflops", "kernel_triple_tflops",
+    "kernel_fwdbwd_tflops", "pieces_sum_ms"]
+JAX_CEILING_KEYS = [
+    "rows", "T", "H", "D", "Dp", "fwd_ms", "fwd_tflops", "dual_ms",
+    "dual_tflops", "triple_ms", "triple_tflops", "fwdbwd_ms",
+    "fwdbwd_tflops", "fwd_flops_g"]
+
+
+def bench_phase(torch, card, zero_counts, peek_counts, failures):
+    """(h) The measurement entry points on the card at cut lengths (the
+    full ``bench`` verb runs in a call of its own): 32 headline steps, 8
+    scale steps, chunks of 50 training slots, R = 4 event reps.  Each
+    section runs with the K1-K7 launch counters set to 0 just before and
+    read just after: ``need`` names the kernels it must launch, ``none``
+    a section that must launch none."""
+    from diral_tpu_torch import bench
+    from diral_tpu_torch.scripts import bench_event, kernel_ceiling
+
+    dev = torch.device("cuda")
+    every = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+    def section(label, fn, need=(), none=False):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = peek_counts()
+        launched = {k: n for k, n in got.items() if n}
+        log(f"bench {label}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launched or 'none'}")
+        missing = [k for k in need if not got[k]]
+        if missing:
+            failures.append(f"bench {label}: {', '.join(missing)} never "
+                            f"launched")
+        if none and launched:
+            failures.append(f"bench {label}: launched {launched}, "
+                            f"expected none")
+        return out
+
+    head = section(f"headline (toy, {bench.NUM_ENVS} envs x 32 steps)",
+                   lambda: bench.headline(bench.NUM_ENVS, 32, dev),
+                   none=True)
+    if not section("kernel parity", lambda: bench.bench_kernel_parity(
+            device=dev), need=every):
+        failures.append("bench kernel parity")
+    scale = section("scale (100v/50r, 2048 envs x 8 steps)",
+                    lambda: bench.bench_scale(2048, 8, dev),
+                    need=("K5", "K6"))
+    train = section("train loop (toy, 256 envs, 4 x 50 slots, float32 + "
+                    "split)", lambda: bench.bench_train_loop(256, 50,
+                                                             device=dev),
+                    need=("K1", "K2", "K3"))
+    train_bf16 = section(
+        "train loop (toy, 256 envs, 4 x 50 slots, bfloat16)",
+        lambda: bench.bench_train_loop(256, 50, "bfloat16", split=False,
+                                       device=dev),
+        need=("K1", "K2", "K3"))
+    out = bench.bench_line(head, scale, train, train_bf16)
+    log(f"bench line (cut lengths): {json.dumps(out)}")
+    if list(out) != JAX_BENCH_KEYS:
+        failures.append(f"bench line keys {list(out)} != bench.py's")
+    rates = [out[k] for k in ("value", "value_min",
+                              "scale_env_steps_per_sec",
+                              "train_slots_per_sec",
+                              "train_slots_per_sec_bf16")]
+    if not bench.finite_positive(*rates, out["spread"]):
+        failures.append(f"bench line: a rate is not finite and positive "
+                        f"({rates})")
+
+    ev = section("bench_event (float32, R=4, 256 envs)",
+                 lambda: bench_event.measure(
+                     "float32", reps=4, envs=256, warm_slots=25,
+                     timeit_n=3, device=dev),
+                 need=("K1", "K2", "K3", "K4"))
+    log(f"bench_event: {json.dumps(ev)}")
+    ms = [v for k, v in ev.items() if k.endswith("_ms")]
+    if list(ev) != JAX_EVENT_KEYS or not all(math.isfinite(v) for v in ms) \
+            or not ev["event_ms"] > 0:
+        failures.append("bench_event: keys or times")
+    kc = section("kernel_ceiling (toy)", lambda: kernel_ceiling.measure(
+        ["toy"], reps=8, timeit_n=3, device=dev),
+        need=("K1", "K2", "K3", "K4"))
+    if list(kc["toy"]) != JAX_CEILING_KEYS or not all(
+            math.isfinite(kc["toy"][k]) for k in ("fwd_ms", "dual_ms",
+                                                  "triple_ms", "fwdbwd_ms")):
+        failures.append("kernel_ceiling: keys or times")
+    bench_busy(torch, bench)
+    log(f"bench: {card}")
+
+
+def bench_busy(torch, bench):
+    """Where the bench's sections spend their time: the device's busy
+    share of the wall under torch.profiler over 16 headline steps (8192
+    toy envs), 16 scale steps (2048 100v/50r envs), 50 training slots
+    (toy, 256 envs: two train events) and 24 reps of K1 + K3 (autograd)
+    at the toy event's shape (2048 rows)."""
+    from diral_tpu_torch.envs import v2v_env as E
+    from diral_tpu_torch.models.recurrent import lstm_init
+    from diral_tpu_torch.ops import lstm_window as K1
+    from diral_tpu_torch.train.loop import Draws, make_train_functions
+    from diral_tpu_torch.train.runner import run_chunks
+
+    dev = torch.device("cuda")
+    for label, cfg, envs, step in (
+            ("headline toy", bench.toy_4ue_3r().env, bench.NUM_ENVS,
+             E.step_collision),
+            ("scale 100v/50r", bench.load_config(os.path.join(
+                bench.ROOT, "configs", "scale_100v_50r.yaml")).env, 2048,
+             E.step_channel)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        held = [E.reset(cfg, envs, gen, torch.float32, dev)]
+
+        def steps(n, cfg=cfg, envs=envs, step=step, gen=gen, held=held):
+            held[0], r, sv = bench.rollout(
+                cfg, held[0], lambda _i: E.sample_actions(cfg, gen, envs,
+                                                          dev),
+                0, n, step=step)
+            torch.stack([r, sv]).tolist()
+
+        steps(4)
+        wall, prow, busy = device_profile(torch, lambda: steps(16), 16)
+        log_profile(f"bench {label} x {envs} envs, 16 steps (profiler on)",
+                    "step", wall, prow, busy, 4)
+
+    cfg = bench.train_bench_config(256)
+    fns = make_train_functions(cfg, torch.float32, dev)
+    draws = Draws(torch.Generator(device=dev).manual_seed(0))
+    held = [fns.init_carry(draws)]
+
+    def slots(t0):
+        for held[0], _, _ in run_chunks(fns, held[0], draws, t0, t0 + 50, 50,
+                                        torch.float32):
+            pass
+
+    slots(612)
+    wall, prow, busy = device_profile(torch, lambda: slots(662), 50)
+    log_profile("bench train loop toy x 256 envs, 50 slots, 2 events "
+                "(profiler on)", "slot", wall, prow, busy, 4)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = lstm_init(gen, 23, 256, torch.float32, dev)
+    x = torch.randn((2048, 6 * K1.padded_dim(23)), generator=gen,
+                    device=dev).requires_grad_()
+
+    def fwdbwd():
+        for _ in range(24):
+            torch.autograd.grad(K1.lstm_last_flat(x, p["w"], p["b"], 6)
+                                .sum(), x)
+
+    fwdbwd()
+    wall, prow, busy = device_profile(torch, fwdbwd, 24)
+    log_profile("bench K1 + K3 (autograd) x 2048 rows, 24 reps (profiler "
+                "on)", "rep", wall, prow, busy, 4)
+
+
 def main() -> int:
     import torch
 
@@ -1716,7 +1888,7 @@ def main() -> int:
         # bf16 step of it -- a bf16 output, or an intermediate h whose
         # rounding the sum order flipped, lands one step apart -- and the
         # median gap below 1e-6
-        ok = (bool((gap <= 1e-4 + bf16_ulp(torch, want)).all())
+        ok = (bool((gap <= 1e-4 + bf16_ulp(want)).all())
               and float(gap.median()) < 1e-6)
         log(f"K1 {label}: B={B} T={T} D={D} H={H} max|dh|={err:.3e} median "
             f"{float(gap.median()):.1e} {'ok' if ok else 'FAIL'}")
@@ -2079,6 +2251,10 @@ def main() -> int:
                 lambda: {k: fn.launches for k, fn in
                          train_wrappers.items()}, failures)
     mark("(g) serve")
+    bench_phase(torch, card, zero_counts,
+                lambda: {k: fn.launches for k, fn in
+                         train_wrappers.items()}, failures)
+    mark("(h) bench, bench_event, kernel_ceiling")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

@@ -29,6 +29,7 @@
                                           [--distance-reward] [--port P]
                                           [--transport framed|zmq]
                                           [--seed S] [--device cuda|cpu]
+    python -m diral_tpu_torch bench       [--device cuda|cpu]
 
 ``train`` runs every simulation of the config (runner.run_all_simulations)
 and writes the reference-layout results under ``--workdir``; ``--resume``
@@ -47,8 +48,11 @@ generator seeded by ``--seed``.  The rollout itself is seeded 1, as in
 the JAX verbs.  ``serve`` serves the port's C++ RealNeS stand-in
 (interop/serve.py, the simulator built into build/ at first use) and
 prints one JSON line of stats with the JAX verb's keys (plus ``timing``);
-``--transport zmq`` needs pyzmq and a loadable libzmq.so.5.  Every verb
-runs on the CUDA device unless ``--device cpu``.
+``--transport zmq`` needs pyzmq and a loadable libzmq.so.5.  ``bench``
+runs the benchmark of diral_tpu_torch/bench.py (headline, kernel parity,
+100v/50r engine, training loop) and prints its JSON line; it exits 1
+when the parity check or a section failed.  Every verb runs on the CUDA
+device unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -275,6 +279,14 @@ def cmd_serve(args):
         env.close()
 
 
+def cmd_bench(args):
+    from diral_tpu_torch import bench
+
+    code = bench.main(args.device)
+    if code:
+        raise SystemExit(code)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="diral_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -379,6 +391,9 @@ def main(argv=None):
     sp.add_argument("--seed", type=int, default=None)
     sp.add_argument("--device", default=None, help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_serve)
+    sp = sub.add_parser("bench", help="run the throughput benchmark")
+    sp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     args.fn(args)
 

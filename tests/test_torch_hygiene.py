@@ -59,7 +59,9 @@ def test_package_imports_no_jax():
                  "train.profiling", "scripts.full_run",
                  "scripts.seed_campaign", "interop.transport",
                  "interop.bridge", "interop.gateway_env", "interop.serve",
-                 "interop.wire", "scripts.serve_campaign"):
+                 "interop.wire", "scripts.serve_campaign", "bench",
+                 "scripts.bench_event", "scripts.kernel_ceiling",
+                 "scripts.profile_slot"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -147,7 +149,8 @@ def test_entry_points_default_to_cuda():
                   "1"],
                  ["train-ps", "configs/congested_6v_5r.yaml", "--algo",
                   "ps-dqn", "--episodes", "1"],
-                 ["serve", "--mode", "sps", "--rounds", "1"]):
+                 ["serve", "--mode", "sps", "--rounds", "1"],
+                 ["bench"]):
         out = subprocess.run([sys.executable, "-m", "diral_tpu_torch", *argv],
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
