@@ -118,6 +118,22 @@ failure exits non-zero:
        train loop, K1-K4 in ``bench_event`` and ``kernel_ceiling``;
        then the device's busy share under torch.profiler of headline,
        scale and train-loop steps and of K1 + K3 at the toy event shape;
+   (i) the parallel layer (diral_tpu_torch/parallel): the ``train`` verb
+       on 100v/50r, 16 envs x 400 slots (six train events), with
+       ``--resume`` so that each run writes its checkpoint: once without
+       a mesh, then ``--mesh data=1`` as one rank over NCCL, ``--mesh
+       data=2`` and ``--mesh data=1,model=2`` as two ranks sharing the
+       card over gloo (rank 0 in this process, rank 1 a subprocess);
+       each mesh run's rewards, actions and checkpoint (learner, Adam,
+       ring, env, generator) bit-equal to the one-process run's, K1, K2,
+       K3, K5 and K6 launched on rank 0, the backend and each rank's
+       device printed, every train event of ``data=2`` one data-group
+       all-reduce of ``sampler_collective_bytes``' bytes (none at data=1:
+       a group of one is skipped), and the device bytes a checkpoint save
+       adds on rank 0 at most ``SAVE_CHUNK_BYTES``; one all-reduce of the
+       sampler's batch through a one-rank NCCL group, asked for
+       explicitly; then ``width_report --no-run`` and a measured run cut
+       to 64 envs x 4 chunks of 100 slots;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -1795,6 +1811,242 @@ def bench_busy(torch, bench):
                 "on)", "rep", wall, prow, busy, 4)
 
 
+def parallel_phase(torch, np, here, card, zero_counts, read_counts,
+                   failures, envs=16, slots=400, extra=()):
+    """(i) The parallel layer on the card (see the module docstring).
+    ``extra``: options added to every ``train`` command (a rehearsal on
+    the CPU passes ``--device cpu``)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from diral_tpu_torch.bench import _free_port
+    from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.parallel import mesh as pmesh
+    from diral_tpu_torch.scripts import width_report
+    from diral_tpu_torch.train import checkpoint as ckpt
+    from diral_tpu_torch.train import cli
+    from diral_tpu_torch.train.loop import sampler_collective_bytes
+
+    yaml_path = os.path.join(here, "configs", "scale_100v_50r.yaml")
+    cfg = load_config(yaml_path)
+    cfg = dataclasses.replace(cfg, time_slots=slots, engine=dataclasses.replace(
+        cfg.engine, num_envs=envs))
+    coll = sampler_collective_bytes(cfg)
+    I, batch = cfg.episode_interval, cfg.agent.batch_size
+    events = sum(1 for t in range(slots)
+                 if t % I == I - 1 and t > batch + 10)
+    name = cfg.experiment_name
+    base = ["train", yaml_path, "--num-envs", str(envs), "--slots",
+            str(slots), "--resume", *extra]
+    root = tempfile.mkdtemp(prefix="diral_parallel_")
+
+    plain_save = ckpt.save
+
+    def measured_save(into):
+        """``checkpoint.save`` noting the device bytes it adds on this
+        process's card (its peak over what was allocated before)."""
+        def save(*a, **kw):
+            if not torch.cuda.is_available():   # a rehearsal on the CPU
+                into.append(0)
+                return plain_save(*a, **kw)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            path = plain_save(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(torch.cuda.max_memory_allocated() - before)
+            return path
+        return save
+
+    def nccl_one_rank():
+        """One all-reduce of the sampler's batch through a one-rank NCCL
+        group, asked for directly (the mesh skips a group of one)."""
+        import torch.distributed as dist
+
+        from diral_tpu_torch.parallel import distributed
+
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+        try:
+            mesh = pmesh.make_mesh(1)
+            x = torch.randn(coll["gathered_elems"], device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+            y = x.clone()
+            dist.all_reduce(y, group=mesh.data_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.data_group)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return mesh.backend, torch.equal(x, y), ms, out.getvalue()
+        finally:
+            distributed.shutdown()
+
+    def run(label, mesh=None, ranks=1):
+        wd = os.path.join(root, re.sub(r"\W+", "_", label))
+        argv = base + ["--workdir", wd]
+        procs = []
+        if mesh:
+            argv += ["--mesh", mesh, "--coordinator",
+                     f"127.0.0.1:{_free_port()}", "--num-processes",
+                     str(ranks)]
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "diral_tpu_torch", *argv,
+                 "--process-id", str(r)], cwd=here, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, PYTHONPATH=here))
+                for r in range(1, ranks)]
+            argv += ["--process-id", "0"]
+        pmesh.COLLECTIVES = []
+        zero_counts()
+        buf = io.StringIO()
+        save_bytes = []
+        t0 = time.perf_counter()
+        ok = True
+        try:
+            with contextlib.redirect_stdout(buf):
+                ckpt.save = measured_save(save_bytes)
+                cli.main(argv)
+        except Exception as e:   # recorded as a failure below
+            log(f"parallel {label}: rank 0 raised {e!r}")
+            ok = False
+        finally:
+            ckpt.save = plain_save
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(f"parallel {label}")
+        text = buf.getvalue()
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            text += out
+            if p.returncode != 0:
+                log(f"parallel {label}: rank 1 exit {p.returncode}:\n"
+                    f"{out[-3000:]}")
+                ok = False
+        for line in text.splitlines():
+            if line.startswith("backend:"):
+                log(f"parallel {label}: {line}")
+        res = os.path.join(wd, "save_results", "test", name)
+        step = ckpt.latest_step(os.path.join(wd, "save_model", "test",
+                                             name))
+        if step is None or not os.path.exists(os.path.join(
+                res, "rewards_sim0.npy")):
+            ok = False
+        collectives, pmesh.COLLECTIVES = pmesh.COLLECTIVES, None
+        return {"ok": ok, "wall": wall, "counts": counts, "wd": wd,
+                "step": step, "collectives": collectives,
+                "save_bytes": max(save_bytes, default=None)}
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, torch.Tensor):
+            # torch.equal: the all-reduce may turn a -0.0 into +0.0
+            return (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b))
+        return a == b
+
+    def results(r):
+        res = os.path.join(r["wd"], "save_results", "test", name)
+        blob = torch.load(os.path.join(
+            r["wd"], "save_model", "test", name, f"ckpt_{r['step']}.pt"),
+            map_location="cpu", weights_only=True, mmap=True)
+        return (np.load(os.path.join(res, "rewards_sim0.npy")),
+                np.load(os.path.join(res, "actions_sim0.npy")), blob)
+
+    try:
+        ref = run("one process")
+        log(f"parallel one process: {slots} slots in {ref['wall']:.2f} s, "
+            f"launches {ref['counts']}")
+        if not ref["ok"]:
+            failures.append("parallel: the one-process run")
+            return
+        want = results(ref)
+        need = ("K1", "K2", "K3", "K5", "K6")
+        for label, mesh, ranks in (
+                ("nccl data=1 (one rank)", "data=1", 1),
+                ("gloo data=2 (two ranks, one card)", "data=2", 2),
+                ("gloo data=1,model=2 (two ranks, one card)",
+                 "data=1,model=2", 2)):
+            r = run(label, mesh, ranks)
+            got = results(r) if r["ok"] else None
+            bit = got is not None and all(
+                np.array_equal(a, b) for a, b in zip(got[:2], want[:2])) \
+                and same(got[2], want[2])
+            ar = [c for c in r["collectives"] if c["op"] == "all_reduce"]
+            data = 2 if mesh == "data=2" else 1
+            want_ar = events if data > 1 else 0
+            saved_ok = (r["save_bytes"] is not None
+                        and r["save_bytes"] <= pmesh.SAVE_CHUNK_BYTES)
+            per_event = (len(ar) == want_ar and all(
+                c["axis"] == "data" and c["numel"] == coll["gathered_elems"]
+                and c["bytes"] == coll["bytes_per_event"] for c in ar))
+            other = {}
+            for c in r["collectives"]:
+                if c["op"] != "all_reduce":
+                    key = f"{c['op']}/{c['axis']}"
+                    other[key] = other.get(key, 0) + 1
+            launched = all(r["counts"][k] for k in need)
+            log(f"parallel {label}: {slots} slots in {r['wall']:.2f} s "
+                f"(one process {ref['wall']:.2f} s); launches on rank 0 "
+                f"{r['counts']}; {events} train events, "
+                f"{len(ar)} all_reduce(s) of "
+                f"{sorted({c['numel'] for c in ar})} elements = "
+                f"{sorted({c['bytes'] for c in ar})} B each "
+                f"(sampler_collective_bytes: {coll['bytes_per_event']} B, "
+                f"{'1 a train event' if data > 1 else 'none: a data group of one'}"
+                f"); other collectives {other}; device bytes a save adds on "
+                f"rank 0: {r['save_bytes']} (one-process run "
+                f"{ref['save_bytes']}; limit {pmesh.SAVE_CHUNK_BYTES}); "
+                f"rewards, actions and checkpoint at slot {r['step']} "
+                f"bit-equal to one process: {bit}")
+            if not (r["ok"] and bit and per_event and launched and saved_ok):
+                failures.append(f"parallel {label}")
+            if mesh == "data=1" and torch.cuda.is_available():
+                backend, same_ar, ms, line = nccl_one_rank()
+                log(f"parallel explicit one-rank all_reduce of "
+                    f"{coll['bytes_per_event']} B: {line.strip()}; "
+                    f"equal: {same_ar}; {ms:.3f} ms")
+                if backend != "nccl" or not same_ar:
+                    failures.append("parallel one-rank NCCL all_reduce")
+
+        # (4) the width report: the arithmetic, then a measured run cut
+        # to 64 envs
+        with contextlib.redirect_stdout(io.StringIO()):
+            arith = width_report.main(["--no-run", "--out", os.path.join(
+                root, "width_arith.json")])
+            cut = width_report.main(["--envs", "64", "--slots", "100",
+                                     "--out", os.path.join(root,
+                                                           "width_cut.json")])
+        m, run_ = arith["hbm_model"]["float32"], cut.get("measured_run", {})
+        log(f"width_report: {card}; {arith['memory_bytes']:,} B x "
+            f"{arith['budget_fraction']}; float32 {m['per_env_mb']} MiB/env "
+            f"-> B_max {m['largest_B_one_chip']} (pow2 "
+            f"{m['largest_pow2_B']}), {m['chips_for_8192_envs']} cards for "
+            f"8192 envs; cut run {json.dumps(run_)}")
+        rates = [run_.get(k) for k in ("slots_per_sec", "env_slots_per_sec",
+                                       "agent_steps_per_sec")]
+        if not (m["largest_pow2_B"] >= 1 and all(
+                isinstance(v, float) and math.isfinite(v) and v > 0
+                for v in rates) and run_.get("peak_bytes", 0) > 0):
+            failures.append("parallel width_report")
+    except Exception as e:   # recorded as a failure
+        log(f"parallel phase raised {e!r}")
+        failures.append("parallel phase")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2255,6 +2507,8 @@ def main() -> int:
                 lambda: {k: fn.launches for k, fn in
                          train_wrappers.items()}, failures)
     mark("(h) bench, bench_event, kernel_ceiling")
+    parallel_phase(torch, np, here, card, zero_counts, read_counts, failures)
+    mark("(i) parallel")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

@@ -36,9 +36,10 @@ Departures from bench.py (ROADMAP Queue 3):
 3. Failures.  bench.py logs a failed secondary section and exits 0.  Here
    each section runs on its own, the JSON line is still printed, and a
    parity miss or a section that raised makes the exit code 1.
-4. ``bench_scaling`` (bench.py:658, a sharded weak-scaling sweep) waits
-   for the port's device mesh (ROADMAP Queue 1 item 5); bench.py runs it
-   only with more than one device, so on one card nothing is lost.
+4. ``bench_scaling`` (bench.py:658, the weak-scaling sweep over a data
+   mesh) launches one process per card (parallel/distributed.py), as the
+   port's mesh runs one rank per device; like bench.py, ``main`` runs it
+   only with more than one card.
 
 One grain: the port's training loop has no episode grain (ROADMAP
 standing decision), so the train-loop section starts at slot
@@ -390,9 +391,13 @@ def main(device=None) -> int:
     train_rate = section("train loop", lambda: bench_train_loop(device=dev))
     train_rate_bf16 = section("train loop bf16", lambda: bench_train_loop(
         compute_dtype="bfloat16", split=False, device=dev))
-    log("weak-scaling sweep (bench.py bench_scaling): waits for the port's "
-        "device mesh (ROADMAP Queue 1 item 5); bench.py runs it only with "
-        "more than one device")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards > 1:
+        section("scaling", lambda: bench_scaling(device=dev))
+    else:
+        log(f"weak-scaling sweep (bench_scaling) needs a second card: "
+            f"{cards} visible (bench.py, too, runs it only with more than "
+            f"one device)")
 
     out = bench_line(head, scale_rate, train_rate, train_rate_bf16)
     print(json.dumps(out), flush=True)
@@ -776,6 +781,87 @@ def bench_train_loop(num_envs: int = 256, chunk: int = TRAIN_CHUNK,
         f"({rate2:,.1f} slots/s training-off), train event {event_ms:.2f} "
         f"ms ({ev_tflops:.2f} TFLOP/s = {verdict})")
     return rate
+
+
+# ---------------------------------------------------------------------------
+# Weak scaling over a data mesh
+# ---------------------------------------------------------------------------
+
+
+def scaling_config(num_envs: int):
+    """bench.py's ``bench_scaling`` config: toy 4ue_3r, memory 256, batch
+    128, no explore phase."""
+    cfg = toy_4ue_3r(save_positions=False, explore=0, memory_size=256)
+    return dataclasses.replace(
+        cfg, agent=dataclasses.replace(cfg.agent, batch_size=128),
+        engine=dataclasses.replace(cfg.engine, num_envs=num_envs))
+
+
+def _scaling_rank(rank, n, port, per_device_envs, chunk, device, out):
+    """One rank of ``bench_scaling``'s n-rank run: a warm chunk from slot
+    ``batch_size + 100``, then the timed one; rank 0 puts the seconds."""
+    from diral_tpu_torch.parallel import distributed
+    from diral_tpu_torch.parallel.mesh import make_mesh
+    from diral_tpu_torch.train.loop import make_train_functions
+    from diral_tpu_torch.train.runner import run_chunks, seeded_draws
+
+    dev = distributed.initialize(f"127.0.0.1:{port}", n, rank, device)
+    try:
+        cfg = scaling_config(per_device_envs * n)
+        fns = make_train_functions(cfg, torch.float32, dev, mesh=make_mesh(n))
+        draws = fns.sharded(seeded_draws(cfg, 0, 0, dev))
+        carry = fns.init_carry(draws)
+        t0 = cfg.agent.batch_size + 100
+        # each chunk ends with the host read of its gathered logs
+        for carry, _, _ in run_chunks(fns, carry, draws, t0, t0 + chunk,
+                                      chunk, torch.float32):
+            pass
+        start = time.perf_counter()
+        for carry, _, _ in run_chunks(fns, carry, draws, t0 + chunk,
+                                      t0 + 2 * chunk, chunk, torch.float32):
+            pass
+        if rank == 0:
+            out.put(time.perf_counter() - start)
+    finally:
+        distributed.shutdown()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bench_scaling(per_device_envs: int = 1024, chunk: int = 64,
+                  devices: int | None = None, device=None) -> dict:
+    """Weak-scaling sweep over device counts (stderr), bench.py:658: for
+    n = 1, 2, 4, ... <= ``devices`` (default: the visible cards) launch n
+    ranks over a data mesh, ``per_device_envs`` envs each; efficiency =
+    rate(n) / (n * rate(1)).  Returns {n: env-slots/s}.  The BASELINE
+    target is >= 80% at n >= 2 hosts."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    if devices is None:
+        devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    counts, n = [], 1
+    while n <= devices:
+        counts.append(n)
+        n *= 2
+    ctx = mp.get_context("spawn")
+    rates = {}
+    for n in counts:
+        out = ctx.SimpleQueue()
+        mp.start_processes(_scaling_rank, args=(
+            n, _free_port(), per_device_envs, chunk, str(dev), out),
+            nprocs=n, start_method="spawn")
+        rates[n] = per_device_envs * n * chunk / out.get()
+        eff = rates[n] / (n * rates[1])
+        log(f"scaling n={n}: {rates[n]:,.0f} env-slots/s "
+            f"(efficiency {eff:.0%})")
+    return rates
 
 
 def finite_positive(*xs) -> bool:

@@ -15,6 +15,16 @@ Orbax's manager keeps them.  The file holds tensors, Python scalars and
 plain containers only, so ``torch.load(..., weights_only=True)`` reads it;
 tensors keep their dtype (a bf16 ring stays bf16).
 
+Under a mesh (parallel/mesh.py) rank 0 gathers the env-axis tensors over
+the data group (the learner is replicated) and writes the same file a
+one-device run writes at that slot; every rank restores from it and
+slices its own part.  So ``--resume``, ``eval --checkpoint`` and
+``compare-sps --checkpoint`` work across mesh shapes, as Orbax's sharded
+restore does for the JAX package.  Every rank calls ``save``: the gathers
+are collective.  They stream each shard through rank 0's card in steps of
+``mesh.SAVE_CHUNK_BYTES`` into file-backed host tensors, so a save needs
+neither the global replay ring on a card nor in the process's memory.
+
 A run directory of the JAX package (Orbax) is not readable here, and the
 JAX package's restore shims for its older layouts have no counterpart.
 """
@@ -28,6 +38,8 @@ import tempfile
 
 import numpy as np
 import torch
+
+from diral_tpu_torch.parallel import mesh as pmesh
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -49,34 +61,87 @@ def latest_step(directory: str) -> int | None:
     return found[-1] if found else None
 
 
-def carry_state(carry) -> dict:
-    """The carry as a ``weights_only``-loadable dict."""
-    env, rp, lr = carry.env_state, carry.replay, carry.learner
-    return {
-        "env_state": {f.name: getattr(env, f.name)
-                      for f in dataclasses.fields(env)},
-        "history": carry.history, "state": carry.state,
-        "replay": {"buf": rp.buf, "ptr": int(rp.ptr),
-                   "count": int(rp.count)},
+def _host_tensor(directory: str, shape, dtype) -> torch.Tensor:
+    """A host tensor backed by an unlinked file in ``directory``: the
+    page cache, not the process's memory, holds what a mesh save
+    gathers, however many shards it comes from."""
+    os.makedirs(directory, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix=".gather_", dir=directory)
+    os.close(fd)
+    if not int(np.prod(shape)):
+        os.remove(path)
+        return torch.empty(shape, dtype=dtype)
+    try:
+        return torch.from_file(path, shared=True, dtype=dtype,
+                               size=int(np.prod(shape))).view(shape)
+    finally:
+        os.remove(path)
+
+
+def _nest(tree: dict, name: str, value) -> None:
+    head, _, rest = name.partition(".")
+    if rest:
+        _nest(tree.setdefault(head, {}), rest, value)
+    else:
+        tree[head] = value
+
+
+def _lookup(tree: dict, name: str):
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
+def carry_state(carry, mesh=None, directory: str = ".") -> dict | None:
+    """The carry as a ``weights_only``-loadable dict.  Under a mesh that
+    shards envs: the one-device carry's, on rank 0 (None on the other
+    ranks, which must call it too), each env-axis tensor streamed over
+    the data group into a host tensor backed by a file in ``directory``
+    (parallel/mesh.gather_to_primary)."""
+    primary = mesh is None or mesh.rank == 0
+    sharded = mesh is not None and mesh.distributed and mesh.data > 1
+
+    def whole(x):
+        if not sharded:
+            return x
+        out = None
+        if primary:
+            out = _host_tensor(directory, (mesh.data * x.shape[0],
+                                           *x.shape[1:]), x.dtype)
+        pmesh.gather_to_primary(x, mesh, out)
+        return out
+
+    # the gathers run in this order on every rank
+    tensors = {k: whole(x) for k, x in pmesh.env_axis(carry).items()}
+    if not primary:
+        return None
+    rp, lr = carry.replay, carry.learner
+    state = {
+        "replay": {"ptr": int(rp.ptr), "count": int(rp.count)},
         "learner": {"params": lr.params.state_dict(),
                     "target_params": lr.target_params.state_dict(),
                     "opt": lr.opt.state_dict()},
         "eps_state": {"eps": float(carry.eps_state.eps),
                       "episode": int(carry.eps_state.episode)},
         "beta": float(carry.beta),
-        "sum_ia_prev": carry.sum_ia_prev, "ia_counter": carry.ia_counter,
-        "prev_actions": carry.prev_actions,
     }
+    for k, x in tensors.items():
+        _nest(state, k, x)
+    return state
 
 
 def save(directory: str, step: int, carry, generator=None,
-         max_to_keep: int = 3) -> str:
+         max_to_keep: int = 3, mesh=None) -> str:
     """Write ``carry`` at slot ``step`` (and ``generator``'s state, when the
     run draws from one) atomically; drop all but the last ``max_to_keep``.
-    Returns the checkpoint's path."""
+    Returns the checkpoint's path.  Under a ``mesh`` every rank calls it
+    and rank 0 writes the one-device file."""
+    state = carry_state(carry, mesh, directory)
+    if state is None:
+        return _path(directory, step)
     os.makedirs(directory, exist_ok=True)
     blob = {"step": int(step), "device": carry.history.device.type,
-            "carry": carry_state(carry), "generator": None}
+            "carry": state, "generator": None}
     if generator is not None:
         blob["generator"] = {"device": generator.device.type,
                              "state": generator.get_state()}
@@ -111,15 +176,28 @@ def _into(dst: torch.Tensor, src: torch.Tensor, what: str) -> torch.Tensor:
     return src.to(dst.device)
 
 
-def restore(directory: str, carry, generator=None, step: int | None = None):
+def restore(directory: str, carry, generator=None, step: int | None = None,
+            mesh=None):
     """Load the checkpoint at ``step`` (default the latest) into the
     structure of ``carry`` (the run's fresh ``init_carry``, on its device)
     and ``generator``'s state into ``generator``.  Returns (carry, step).
+    Under a ``mesh`` ``carry`` is this rank's shard and takes its slice
+    of the one-device file (read through mmap).
 
     A generator's state is device-specific (a CUDA generator's is its
     Philox seed and offset): a checkpoint written with a generator of
     another device type is refused."""
-    blob, step = _load(directory, step, map_location="cpu")
+    blob, step = _load(directory, step, map_location="cpu",
+                       mmap=mesh is not None)
+    lo, count = (0, None) if mesh is None else mesh.env_slice(
+        blob["carry"]["history"].shape[0])
+
+    def mine(x, dst):
+        # this rank's slice, read from the mapped file straight to the
+        # run's device (a copy out of the mapping on the CPU)
+        if count is None:
+            return x
+        return x[lo:lo + count].to(dst.device, copy=True)
     saved = blob["generator"]
     if generator is not None:
         if saved is None:
@@ -133,27 +211,21 @@ def restore(directory: str, carry, generator=None, step: int | None = None):
                 "differ by device)")
         generator.set_state(saved["state"])
     s = blob["carry"]
-    env = carry.env_state.replace(**{
-        k: _into(getattr(carry.env_state, k), v, f"env_state.{k}")
-        for k, v in s["env_state"].items()})
-    rp = s["replay"]
-    replay = dataclasses.replace(
-        carry.replay, buf=_into(carry.replay.buf, rp["buf"], "replay.buf"),
-        ptr=rp["ptr"], count=rp["count"])
+    carry = pmesh.with_env_axis(carry, {
+        k: _into(x, mine(_lookup(s, k), x), k)
+        for k, x in pmesh.env_axis(carry).items()})
     lr = carry.learner
     lr.params.load_state_dict(s["learner"]["params"])
     lr.target_params.load_state_dict(s["learner"]["target_params"])
     lr.opt.load_state_dict(s["learner"]["opt"])
     eps = s["eps_state"]
     carry = carry.replace(
-        env_state=env, replay=replay,
+        replay=dataclasses.replace(carry.replay, ptr=s["replay"]["ptr"],
+                                   count=s["replay"]["count"]),
         eps_state=dataclasses.replace(carry.eps_state,
                                       eps=np.float32(eps["eps"]),
                                       episode=eps["episode"]),
-        beta=np.float32(s["beta"]),
-        **{k: _into(getattr(carry, k), s[k], k)
-           for k in ("history", "state", "sum_ia_prev", "ia_counter",
-                     "prev_actions")})
+        beta=np.float32(s["beta"]))
     return carry, step
 
 

@@ -3,6 +3,10 @@
     python -m diral_tpu_torch train       <config.yaml> [--slots N] [--seed S]
                                           [--num-envs B] [--workdir DIR]
                                           [--resume] [--profile DIR]
+                                          [--mesh SPEC]
+                                          [--coordinator HOST:PORT
+                                           --num-processes P
+                                           --process-id I]
                                           [--device cuda|cpu]
     python -m diral_tpu_torch eval        <config.yaml> [--steps N] [--seed S]
                                           [--num-envs B] [--checkpoint DIR]
@@ -36,7 +40,14 @@ and writes the reference-layout results under ``--workdir``; ``--resume``
 continues from the latest checkpoint there (a cold start when there is
 none) and ``--profile DIR`` writes a torch.profiler Chrome trace of the run
 into DIR; the profiler holds every event of the run in host memory until
-it ends, so ``--profile`` is for short runs (``--slots``).  ``train-sweep`` trains seeds 0..S-1 (train/sweep.py) and prints
+it ends, so ``--profile`` is for short runs (``--slots``).  ``--mesh
+data=D[,model=M]`` runs the training over D*M processes, one per device
+(parallel/mesh.py): every process runs the same command with
+``--coordinator HOST:PORT --num-processes D*M --process-id I``; envs
+shard over data, the learner is replicated (over model too), and the
+results and checkpoints are the one-process run's.  Unlike the JAX verb, one
+process never spans several devices, so a mesh of more than one device
+needs those three options.  ``train-sweep`` trains seeds 0..S-1 (train/sweep.py) and prints
 one JSON row per seed; ``profile`` prints train/profiling.py's summary.
 ``train-ppo`` (train/ppo_loop.run_ppo) and ``train-ps``
 (train/ps_loop.run_ps; ``--algo`` defaults to the config's
@@ -127,35 +138,33 @@ def cmd_compare_sps(args):
                                          device=dev)))
 
 
-# options of the JAX ``train`` verb that wait for their ROADMAP items
-_NOT_YET = {"mesh": "Queue 1, Parallel", "coordinator": "Queue 1, Parallel"}
-
-
 def cmd_train(args):
-    from diral_tpu_torch.device import resolve_device
+    from diral_tpu_torch.parallel import distributed
     from diral_tpu_torch.train.runner import run_all_simulations
 
-    for opt, item in _NOT_YET.items():
-        if getattr(args, opt):
-            raise NotImplementedError(
-                f"--{opt} is not ported yet (ROADMAP {item})")
     cfg = _load(args)
-    dev = resolve_device(args.device)
-    kw = dict(workdir=args.workdir, seed=args.seed, resume=args.resume,
-              dtype=_DTYPE[cfg.engine.dtype], device=dev)
-    if not args.profile:
-        run_all_simulations(cfg, **kw)
-        return
-    from torch.profiler import ProfilerActivity, profile
+    # multi-process: every process runs this same command with its own
+    # --process-id; the mesh spans all processes, one device each
+    dev = distributed.initialize(args.coordinator, args.num_processes,
+                                 args.process_id, args.device)
+    try:
+        kw = dict(workdir=args.workdir, seed=args.seed, resume=args.resume,
+                  dtype=_DTYPE[cfg.engine.dtype], device=dev, mesh=args.mesh)
+        if not args.profile:
+            run_all_simulations(cfg, **kw)
+            return
+        from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        run_all_simulations(cfg, **kw)
-    os.makedirs(args.profile, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-    print(f"profiler trace written to {args.profile}")
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            run_all_simulations(cfg, **kw)
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"profiler trace written to {args.profile}")
+    finally:
+        distributed.shutdown()
 
 
 def cmd_train_sweep(args):
@@ -303,10 +312,15 @@ def main(argv=None):
     tp.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run into DIR "
                          "(short runs: every event is held in memory)")
-    tp.add_argument("--mesh", default=None,
-                    help="not supported yet (ROADMAP Queue 1, Parallel)")
-    tp.add_argument("--coordinator", default=None,
-                    help="not supported yet (ROADMAP Queue 1, Parallel)")
+    tp.add_argument("--mesh", default=None, metavar="SPEC",
+                    help='device mesh, e.g. "data=2" or "data=2,model=2": '
+                         "envs shard over data, the learner is replicated "
+                         "over model; one process per device")
+    tp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="torch.distributed rendezvous for multi-process "
+                         "runs (tcp://HOST:PORT)")
+    tp.add_argument("--num-processes", type=int, default=None)
+    tp.add_argument("--process-id", type=int, default=None)
     tp.set_defaults(fn=cmd_train)
     for name, fn, help_ in (
             ("eval", cmd_eval, "greedy evaluation of a DRQN"),

@@ -35,6 +35,15 @@ What differs from the JAX package, by design:
 * The sampler selects window starts with one stable ``torch.sort`` prefix
   (JAX's ``top_k`` order, lowest index first on ties); the TPU-only
   two-stage bottom-k and ``gather_impl="scan"`` have no counterpart.
+
+Under a mesh (parallel/mesh.py) each rank holds a slice of the env axis.
+Its draws are ``ShardedDraws``: every env-axis draw is made at the global
+B and sliced, so every rank consumes the one-device run's random stream
+(Philox offsets do not partition the way threefry keys do).  The sampler
+is JAX's (diral_tpu/train/loop.py:106-131): global scores give the same
+(env, start) picks on every rank, each rank gathers the windows it owns
+into a zeroed batch, and ONE all-reduce over the data group completes
+it; every rank then takes the same train step.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from diral_tpu_torch.device import resolve_device
 from diral_tpu_torch.envs import v2v_env as E
 from diral_tpu_torch.models import qnets
 from diral_tpu_torch.ops.lstm_window import padded_dim
+from diral_tpu_torch.parallel import mesh as pmesh
 
 
 # ---------------------------------------------------------------------------
@@ -116,20 +126,98 @@ class Draws:
         return self._uniform((n, BS))
 
 
+class ShardedDraws(Draws):
+    """``inner``'s draws for the env shard [start, start + count) of
+    ``num_envs``: each draw along the env axis is made at ``num_envs``
+    and sliced; the parameter draw and the sampler scores (global) pass
+    through.  The B a caller passes is the shard's and is not used."""
+
+    def __init__(self, inner: Draws, num_envs: int, start: int, count: int):
+        self.inner, self.num_envs = inner, num_envs
+        self.start, self.count = start, count
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    def _cut(self, x):
+        return x[self.start:self.start + self.count]
+
+    def reset(self, env_cfg, num_envs: int, dtype) -> E.EnvState:
+        s = self.inner.reset(env_cfg, self.num_envs, dtype)
+        return E.EnvState(**{f.name: self._cut(getattr(s, f.name))
+                             for f in dataclasses.fields(s)})
+
+    def params(self, state_dim, num_actions, acfg, dtype):
+        return self.inner.params(state_dim, num_actions, acfg, dtype)
+
+    def warmup_actions(self, env_cfg, B: int):
+        return self._cut(self.inner.warmup_actions(env_cfg, self.num_envs))
+
+    def pretrain_actions(self, i: int, env_cfg, B: int):
+        return self._cut(self.inner.pretrain_actions(i, env_cfg,
+                                                     self.num_envs))
+
+    def explore_actions(self, t: int, B: int, N: int, C: int):
+        return self._cut(self.inner.explore_actions(t, self.num_envs, N, C))
+
+    def eps_greedy(self, t: int, B: int, N: int, C: int):
+        return tuple(map(self._cut, self.inner.eps_greedy(
+            t, self.num_envs, N, C)))
+
+    def boltzman(self, t: int, B: int, N: int, C: int):
+        return tuple(map(self._cut, self.inner.boltzman(
+            t, self.num_envs, N, C)))
+
+    def gumbel(self, t: int, B: int, N: int, C: int, dtype):
+        return self._cut(self.inner.gumbel(t, self.num_envs, N, C, dtype))
+
+    def velocity_kicks(self, t: int, B: int, N: int):
+        return self._cut(self.inner.velocity_kicks(t, self.num_envs, N))
+
+    def sampler_scores(self, t: int, n: int, BS: int):
+        return self.inner.sampler_scores(t, n, BS)
+
+
 # ---------------------------------------------------------------------------
 # Sampler
 # ---------------------------------------------------------------------------
 
 
+def sampler_collective_bytes(cfg: ExperimentConfig, dtype_bytes: int = 4):
+    """Per-train-event collective volume of the cross-env window sample
+    under a data-sharded mesh (diral_tpu/train/loop.py's, the same keys
+    and numbers): ONE all-reduce of the gathered batch, ``n_batch *
+    batch_size`` windows -- it scales with the batch, not the replay --
+    which also serves as the gradient sync.  A ring all-reduce moves ~2x
+    the payload per device, once per ``episode_interval`` slots."""
+    acfg, env = cfg.agent, cfg.env
+    step = acfg.step_size if acfg.network.use_lstm_input else 1
+    gathered_elems = (acfg.n_batch * acfg.batch_size * (step + 1)
+                      * env.num_users * padded_dim(env.state_space))
+    payload = gathered_elems * dtype_bytes
+    return {
+        "gathered_elems": int(gathered_elems),
+        "bytes_per_event": int(payload),
+        "ring_bytes_per_device_per_event": int(2 * payload),
+        "bytes_per_slot": payload / cfg.episode_interval,
+    }
+
+
 def _gather_flat_windows(replay: FusedWindowReplay, scores, batch: int,
-                         step: int):
+                         step: int, mesh=None):
     """``n`` independent uniform window draws across the env axis: flatten
     the (env, start) space, keep the ``batch`` lowest of each draw's
     scores [n, B*S] over the valid starts (a uniform sample without
     replacement; the reference's sampler, memory.py:177-194, with one
     env).  Returns whole windows [n*batch, step+1, N*Dp]: the mirror pad
-    makes every window a contiguous slice of its env's ring."""
-    B, S = replay.buf.shape[0], replay.capacity
+    makes every window a contiguous slice of its env's ring.
+
+    Under a ``mesh`` the ring holds this rank's env shard and ``scores``
+    span the global B: the windows of other shards stay zero here and
+    the data group's all-reduce fills them in."""
+    S = replay.capacity
+    B = scores.shape[1] // S
     if replay.pad < step:
         raise ValueError(f"replay mirror pad {replay.pad} < sample window "
                          f"{step}; create the replay with pad=step")
@@ -144,11 +232,20 @@ def _gather_flat_windows(replay: FusedWindowReplay, scores, batch: int,
     oldest = (replay.ptr - replay.count) % S
     base = (oldest + start) % S   # in [0, S): the mirror pad absorbs +step
     slots = base[:, None] + torch.arange(step + 1, device=base.device)
-    return replay.buf[env_idx[:, None], slots]
+    if mesh is None or mesh.data == 1:
+        return replay.buf[env_idx[:, None], slots]
+    lo, count = mesh.env_slice(B)
+    own = (env_idx >= lo) & (env_idx < lo + count)
+    local = torch.where(own, env_idx - lo, 0)
+    fw = replay.buf[local[:, None], slots]
+    fw = torch.where(own[:, None, None], fw, torch.zeros((), dtype=fw.dtype,
+                                                         device=fw.device))
+    return pmesh.all_reduce_sum(fw, mesh)
 
 
 def sample_window_rows_many(replay: FusedWindowReplay, scores, batch: int,
-                            step: int, windows_only: bool = False):
+                            step: int, windows_only: bool = False,
+                            mesh=None):
     """Window samples repacked to user-major Q-net rows (loop.py:242-310).
 
     ``scores`` [n, B*S] are the draws' uniform scores.  Returns per-draw
@@ -158,14 +255,15 @@ def sample_window_rows_many(replay: FusedWindowReplay, scores, batch: int,
     [n, N*batch, step] int64.  With ``windows_only`` the states /
     next_states pair is replaced by ONE ``windows`` array
     [n, N*batch, (step+1)*Dp], whose first step*Dp lanes are the states
-    row and whose lanes from Dp on are the next_states row."""
+    row and whose lanes from Dp on are the next_states row.  ``mesh``:
+    see ``_gather_flat_windows``."""
     n = scores.shape[0]
     N, D = replay.num_users, replay.state_dim
     Dp = padded_dim(D)
     if replay.user_stride != Dp:
         raise ValueError(f"replay stride {replay.user_stride} != Dp {Dp}")
     W = step + 1
-    fw = _gather_flat_windows(replay, scores, batch, step)
+    fw = _gather_flat_windows(replay, scores, batch, step, mesh)
     # [n, batch, W, N, Dp] -> [n, N, batch, W, Dp]: user-major rows
     win = fw.reshape(n, batch, W, N, Dp).permute(0, 3, 1, 2, 4)
     out = {
@@ -210,15 +308,21 @@ class TrainFunctions:
     """``make_train_functions``' result: ``init_carry(draws)``,
     ``slot_core`` / ``slot_step`` (each ``(carry, t, draws) -> (carry,
     logs)``), ``train_gate(t, replay)`` and ``train_call``.  The carry is
-    updated in place where that saves memory (replay ring, learner)."""
+    updated in place where that saves memory (replay ring, learner).
+    Under a ``mesh`` the carry is this rank's shard and the draws are
+    ``sharded(draws)``."""
 
     def __init__(self, cfg: ExperimentConfig, dtype=torch.float32,
-                 device=None, trace=None):
+                 device=None, trace=None, mesh=None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
         env, acfg = cfg.env, cfg.agent
-        self.B = cfg.engine.num_envs
+        # B is this rank's env shard; B_global the run's env count
+        self.B_global = cfg.engine.num_envs
+        self.B = (self.B_global if mesh is None
+                  else mesh.env_slice(self.B_global)[1])
         self.N, self.C, self.D = (env.num_users, env.num_channels,
                                   env.state_space)
         self.T = acfg.step_size
@@ -240,6 +344,14 @@ class TrainFunctions:
                                 and dtype == torch.float32) else dtype)
         self.explore_until = 0 if cfg.load_model else cfg.explore
         self.greedy_after = 0 if cfg.load_model else cfg.greedy
+
+    def sharded(self, draws: Draws) -> Draws:
+        """``draws`` cut to this rank's env shard (as they are without a
+        mesh that shards envs)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return draws
+        start, count = self.mesh.env_slice(self.B_global)
+        return ShardedDraws(draws, self.B_global, start, count)
 
     # -- pieces ------------------------------------------------------------
 
@@ -267,16 +379,17 @@ class TrainFunctions:
             return (t % cfg.episode_interval == cfg.episode_interval - 1
                     and t > cfg.agent.batch_size + 10)
         # per-slot cadence gated on buffer fill (loop.py:634-640)
-        enough = (replay.count - self.window) * self.B >= cfg.agent.batch_size
+        enough = ((replay.count - self.window) * self.B_global
+                  >= cfg.agent.batch_size)
         return t < cfg.training_stop and enough
 
     def train_call(self, learner, replay, t: int, draws: Draws):
         acfg = self.cfg.agent
         scores = draws.sampler_scores(t, acfg.n_batch,
-                                      self.B * replay.capacity)
+                                      self.B_global * replay.capacity)
         rows = sample_window_rows_many(
             replay, scores, acfg.batch_size, self.window,
-            windows_only=acfg.network.use_lstm_input)
+            windows_only=acfg.network.use_lstm_input, mesh=self.mesh)
         return drqn.train(learner, rows, t, acfg)
 
     # -- init --------------------------------------------------------------
@@ -427,9 +540,11 @@ class TrainFunctions:
 
 
 def make_train_functions(cfg: ExperimentConfig, dtype=torch.float32,
-                         device=None, trace=None) -> TrainFunctions:
+                         device=None, trace=None,
+                         mesh=None) -> TrainFunctions:
     """Build the training functions for ``cfg`` on ``device`` (default
     CUDA; raises without a GPU unless ``device="cpu"``).  ``trace``:
     optional [T_rec, N] recorded x positions replayed into the env (the
-    reference's load_positions fixture, main_test.py:118)."""
-    return TrainFunctions(cfg, dtype, device, trace)
+    reference's load_positions fixture, main_test.py:118).  ``mesh``: a
+    parallel/mesh.py ``Mesh`` this process is a rank of."""
+    return TrainFunctions(cfg, dtype, device, trace, mesh)

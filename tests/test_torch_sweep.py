@@ -123,7 +123,7 @@ def _options(main, verb, capsys):
 @pytest.mark.parametrize("verb", ["train", "train-sweep", "eval",
                                   "compare-sps", "profile"])
 def test_verbs_take_the_jax_options(verb, capsys):
-    """Every option of the JAX verb but the parallel ones, plus --device.
+    """Every option of the JAX verb, plus --device.
     JAX's train-sweep and profile take --seed from a shared parent parser
     and ignore it (seeds 0..S-1, a profile seeded 0); the port leaves it
     out rather than accept an option that does nothing."""
@@ -132,9 +132,8 @@ def test_verbs_take_the_jax_options(verb, capsys):
 
     jax_opts = _options(jcli.main, verb, capsys)
     mine = _options(cli.main, verb, capsys)
-    later = {"--num-processes", "--process-id"}   # ROADMAP "Parallel"
     ignored = {"--seed"} if verb in ("train-sweep", "profile") else set()
-    assert jax_opts - later - ignored <= mine, jax_opts - mine
+    assert jax_opts - ignored <= mine, jax_opts - mine
     assert not ignored & mine
     assert mine - jax_opts == {"--device"}
 

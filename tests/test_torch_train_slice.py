@@ -14,8 +14,8 @@ test-side ``Draws`` that walks loop.py's key chain (loop.py:430, 435, 452,
   give the slot loop's results.
 * (j) The ``train`` verb on the CPU writes the reference-layout results;
   without ``--device cpu`` (no GPU here) it raises; ``--resume`` starts
-  cold where no checkpoint is and continues otherwise; ``--mesh``, which
-  waits for a later slice, raises naming its ROADMAP item.
+  cold where no checkpoint is and continues otherwise; ``--mesh data=2``
+  without a process group raises, naming the options that form one.
 """
 
 import dataclasses
@@ -326,4 +326,6 @@ def test_cli_train_on_cpu(tmp_path):
     ok = _cli(resume)
     assert ok.returncode == 0 and "resumed from slot 30" in ok.stdout
     bad = _cli(["train", str(cfg), "--device", "cpu", "--mesh", "data=2"])
-    assert bad.returncode != 0 and "Queue 1, Parallel" in bad.stderr
+    assert bad.returncode != 0 and "needs 2 devices; only 1 visible" in \
+        bad.stderr
+    assert "--coordinator/--num-processes/--process-id" in bad.stderr
