@@ -134,6 +134,18 @@ failure exits non-zero:
        sampler's batch through a one-rank NCCL group, asked for
        explicitly; then ``width_report --no-run`` and a measured run cut
        to 64 envs x 4 chunks of 100 slots;
+   (j) the PPO and PS campaign drivers (diral_tpu_torch/scripts):
+       ``ppo_campaign`` on configs/ppo_congested.yaml, 2 seeds x 40
+       episodes, ``--save-freq 10``, a 20-slot eval on 16 envs, uncut
+       and then cut after seed 1's second checkpoint and started again;
+       ``ps_campaign`` (the toy x 16 envs), 1 seed x 20 episodes of each
+       algorithm, ``--save-freq 5``, cut after PS-DRQN's second
+       checkpoint -- rows bit-equal apart from timings, only the open run
+       started again and resumed from its checkpoint, K1 and K3 launched
+       by the uncut PPO campaign (the PS toy runs launch none: N = 4);
+       then ``drqn.qvalues_all_agents`` at 100v/50r (100 agents) through
+       K1, its last hidden state in the K1 class of K1's plain version
+       and its Q within 1e-3 of the largest of the plain path's;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -1502,6 +1514,149 @@ def campaign_phase(torch, np, here, zero_counts, peek_counts, failures):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def episode_campaign_phase(torch, np, here, dev, zero_counts, read_counts,
+                           failures):
+    """(j) ``ppo_campaign`` and ``ps_campaign`` on the card, each uncut and
+    then cut by a checkpoint write that raises after the second one of
+    its last run and started again: rows bit-equal apart from their
+    timing fields, only the cut run started again, from its checkpoint.
+    Then ``qvalues_all_agents`` through K1 against the plain path."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from diral_tpu_torch.agents import drqn
+    from diral_tpu_torch.config import load_config
+    from diral_tpu_torch.models import qnets
+    from diral_tpu_torch.ops import lstm_window as K1
+    from diral_tpu_torch.scripts import episode_campaign as ec
+    from diral_tpu_torch.scripts import ppo_campaign, ps_campaign
+    from diral_tpu_torch.train import checkpoint as ckpt
+
+    def results(summary):
+        return [{k: v for k, v in r.items() if k not in ec.RUN_FIELDS}
+                for r in summary["runs"]]
+
+    root = tempfile.mkdtemp(prefix="diral_episode_campaign_")
+    specs = (
+        ("ppo_campaign", ppo_campaign, "save_ppo", f"{os.sep}seed1{os.sep}",
+         ["--config", os.path.join(here, "configs", "ppo_congested.yaml"),
+          "--seeds", "2", "--episodes", "40", "--save-freq", "10",
+          "--eval-steps", "20", "--eval-envs", "16", "--reference",
+          os.path.join(here, "results", "ppo_seeds.json")],
+         [10, 20], ("K1", "K3")),
+        ("ps_campaign", ps_campaign, "save_ps",
+         f"ps-drqn{os.sep}seed0{os.sep}",
+         ["--seeds", "1", "--episodes", "20", "--save-freq", "5",
+          "--eval-steps", "20", "--reference",
+          os.path.join(here, "results", "ps_campaign.json")],
+         [5, 10], ()))
+    try:
+        for name, mod, save_name, marker, args, cuts, need in specs:
+            def run(tag):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return mod.main([*args, "--out",
+                                     os.path.join(root, f"{name}_{tag}.json"),
+                                     "--workdir",
+                                     os.path.join(root, f"{name}_{tag}")])
+            label = f"{name} (uncut)"
+            zero_counts()
+            t0 = time.perf_counter()
+            uncut = run("uncut")
+            t_uncut = time.perf_counter() - t0
+            counts = read_counts(label)
+            real_save, real_seed = getattr(ckpt, save_name), mod.run_seed
+            saves, ran = [], []
+
+            def cutting(d, e, *a, **k):
+                path = real_save(d, e, *a, **k)
+                if marker in str(d):
+                    saves.append(e)
+                    if len(saves) == 2:
+                        raise RuntimeError("cut after the second checkpoint")
+                return path
+
+            def spy(*a, **k):
+                ran.append(k["seed"])
+                return real_seed(*a, **k)
+            t0 = time.perf_counter()
+            setattr(ckpt, save_name, cutting)
+            try:
+                run("cut")
+                was_cut = False
+            except RuntimeError:
+                was_cut = True
+            finally:
+                setattr(ckpt, save_name, real_save)
+            mod.run_seed = spy
+            try:
+                again = run("cut")
+            finally:
+                mod.run_seed = real_seed
+            t_cut = time.perf_counter() - t0
+            same = results(again) == results(uncut)
+            resumed = [r["resumed_from"] for r in again["runs"]]
+            deltas = [r["compare_vs_sps"]["prr_improvement"]
+                      for r in uncut["runs"]]
+            ok = (was_cut and same and saves == cuts and len(ran) == 1
+                  and resumed[-1] == [cuts[-1]]
+                  and all(r == [] for r in resumed[:-1])
+                  and all(counts[k] > 0 for k in need)
+                  and finite(np, deltas))
+            log(f"{name}: uncut {t_uncut:.2f} s, cut at episode {cuts[-1]} "
+                f"of its last run and restarted {t_cut:.2f} s; rows "
+                f"{'bit-equal' if same else 'DIFFER'} apart from timings, "
+                f"runs started again {len(ran)}, resumed_from {resumed}; "
+                f"launches in the uncut campaign {counts}; ΔPRR {deltas}, "
+                f"slots/s {[r['slots_per_sec'] for r in uncut['runs']]} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} cut and restarted")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # qvalues_all_agents at 100v/50r: [T, N, D] through K1
+    cfg = load_config(os.path.join(here, "configs", "scale_100v_50r.yaml"))
+    acfg, env = cfg.agent, cfg.env
+    gen = torch.Generator(device=dev).manual_seed(21)
+    learner = drqn.init_learner(qnets.drqn_init(
+        gen, env.state_space, env.num_channels, acfg, device=dev), acfg)
+    history = torch.randn(acfg.step_size, env.num_users, env.state_space,
+                          generator=gen, device=dev)
+    zero_counts()
+    q = drqn.qvalues_all_agents(learner, history, acfg)
+    counts = read_counts("qvalues_all_agents 100v/50r (100 agents)")
+    real = K1.lstm_last_flat
+    K1.lstm_last_flat = K1.lstm_last_flat_plain
+    try:
+        q_plain = drqn.qvalues_all_agents(learner, history, acfg)
+    finally:
+        K1.lstm_last_flat = real
+    lstm = learner.params.tree()["lstm"]
+    x = history.transpose(0, 1)
+    with torch.no_grad():
+        h = K1.lstm_last(x, lstm["w"], lstm["b"])
+        h_plain = K1.lstm_last_flat_plain(K1.flatten_window(x).contiguous(),
+                                          lstm["w"], lstm["b"], x.shape[1])
+    torch.cuda.synchronize()
+    gap = (h - h_plain).abs()
+    q_gap = float((q - q_plain).abs().max())
+    q_scale = float(q_plain.abs().max())
+    ok = (counts["K1"] == 1 and tuple(q.shape) == (env.num_users,
+                                                   env.num_channels)
+          and bool((gap <= 1e-4 + bf16_ulp(h_plain)).all())
+          and float(gap.median()) < 1e-6 and finite(np, q.cpu().numpy())
+          and q_gap <= 1e-3 * max(1.0, q_scale))
+    log(f"qvalues_all_agents 100v/50r: history {tuple(history.shape)} -> Q "
+        f"{tuple(q.shape)}; K1 launches {counts['K1']}; max|dh| vs K1 plain "
+        f"{float(gap.max()):.3e} (median {float(gap.median()):.3e}); max|dQ| "
+        f"vs the plain path {q_gap:.3e} of max|Q| {q_scale:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("qvalues_all_agents through K1")
+
+
 def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
                 compare_rounds=200, rounds=100):
     """(g) Online serving on the card: the port's C++ RealNeS stand-in
@@ -2509,6 +2664,9 @@ def main() -> int:
     mark("(h) bench, bench_event, kernel_ceiling")
     parallel_phase(torch, np, here, card, zero_counts, read_counts, failures)
     mark("(i) parallel")
+    episode_campaign_phase(torch, np, here, dev, zero_counts, read_counts,
+                           failures)
+    mark("(j) ppo_campaign, ps_campaign, qvalues_all_agents")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

@@ -47,6 +47,16 @@ def init_learner(net: qnets.DRQN, cfg: AgentConfig) -> DRQNLearner:
                        opt=make_optimizer(net, cfg))
 
 
+def qvalues_all_agents(learner: DRQNLearner, history, cfg: AgentConfig):
+    """Q for every agent in one forward (drqn.py:53-63): history [T, N, D]
+    (the reference's history deque, main_test.py:125) on the LSTM path --
+    through ``lstm_impl``, so K1 on a CUDA device -- or [N, D] on the MLP
+    path.  Returns [N, A]."""
+    with torch.no_grad():
+        x = history.transpose(0, 1) if cfg.network.use_lstm_input else history
+        return qnets.drqn_apply(learner.params, x, cfg)
+
+
 def _last(x):
     return x[:, -1] if x.dim() == 2 else x
 

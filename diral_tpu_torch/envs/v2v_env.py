@@ -20,8 +20,9 @@ Kernels (on a CUDA device, under the JAX package's gates):
 ``step_channel``'s channel walk -> ops/channel_phase.py (K5), the type-2
 positional distribution -> ops/piggy_hist.py (K6), or, under
 ``hist_impl="lanes"`` at N*N <= 128 in float32, its count histogram ->
-ops/lanes_hist.py (K7).  ``state_generator`` (the DQN-era state, which no
-training path of the JAX package calls) is not ported.
+ops/lanes_hist.py (K7).  ``state_generator`` is the DQN-era [N, 2C+1]
+state, which no training path calls; ``reset_fixed_4ue`` the reference's
+4-vehicle fixture; ``get_step_fn`` the step flavour main_test.py picks.
 
 Random functions (``update_velocity``) take their draws as tensors; the
 draws themselves come from the caller's generator (``sample_actions``,
@@ -146,6 +147,18 @@ def reset_from(cfg: EnvConfig, pos_x, pos_y, vel, direction,
                dtype=torch.float32, device=None) -> EnvState:
     """Inject exact topologies ([B, N] each; oracle-parity entry point)."""
     return _blank_state(cfg, pos_x, pos_y, vel, direction, dtype, device)
+
+
+def reset_fixed_4ue(cfg: EnvConfig, num_envs: int = 1, dtype=torch.float32,
+                    device=None) -> EnvState:
+    """The deterministic 4-vehicle fixture (network.py:81-90), in every
+    one of ``num_envs`` envs."""
+    def rows(v):
+        return torch.tensor([v] * num_envs, dtype=dtype)
+    return _blank_state(cfg, rows([3.0, 5.0, 3.0, 5.0]),
+                        rows([1.0, 1.0, 2.0, 2.0]),
+                        rows([0.5, 1.0, 1.25, 1.5]),
+                        rows([1.0, 1.0, 1.0, 1.0]), dtype, device)
 
 
 def sample_actions(cfg: EnvConfig, generator: torch.Generator,
@@ -425,6 +438,16 @@ def step_channel(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
 # ---------------------------------------------------------------------------
 
 
+def get_step_fn(cfg: EnvConfig, enable_channel: bool = False,
+                design: bool = False):
+    """The step flavour main_test.py:143-147 picks."""
+    if enable_channel:
+        return step_channel
+    if design:
+        return step_design
+    return step_collision
+
+
 def _kernel_wanted(knob: str, impl: str, cfg: EnvConfig,
                    like: torch.Tensor) -> bool:
     """"xla" -> the canonical plain path; "pallas" -> the kernel wrapper
@@ -593,6 +616,19 @@ def obtain_state(cfg: EnvConfig, state: EnvState, obs, actions, rewards,
 # ---------------------------------------------------------------------------
 # Information age
 # ---------------------------------------------------------------------------
+
+
+def state_generator(cfg: EnvConfig, actions, obs):
+    """DQN-era state assembly (test_env.py:507-525): per user, one-hot
+    action ++ the LAST user's full channel-observation row (the
+    reference's ``obs[-1]`` "channel_alloc") ++ the user's own
+    first-channel observation truncated to int (the ACK).  actions [B, N],
+    obs [B, N, C] -> [B, N, 2C+1]."""
+    n, c = cfg.num_users, cfg.num_channels
+    onehot = F.one_hot(actions.long(), c).to(obs.dtype)
+    channel_alloc = obs[:, -1:, :].expand(-1, n, -1)
+    ack = torch.trunc(obs[:, :, :1])
+    return torch.cat([onehot, channel_alloc, ack], dim=2)
 
 
 def information_age(state: EnvState, t: int):

@@ -35,10 +35,17 @@ from diral_tpu_torch.ops import lstm_window
 _MATMUL_GROUPS = ("lstm", "fc1", "fc2", "fc3", "head")
 
 
-def dense_init(generator, in_dim, out_dim, dtype=torch.float32, device=None):
-    """Glorot-uniform weights, zero bias (the JAX package's default)."""
-    lim = math.sqrt(6.0 / (in_dim + out_dim))
+def dense_init(generator, in_dim, out_dim, dtype=torch.float32, device=None,
+               scheme="glorot"):
+    """Glorot-uniform weights and zero bias (the JAX package's default),
+    or with ``scheme="reference"`` the reference's tf.random_uniform
+    U[0,1) weights and 0.1 bias (drl_drqn.py:124-147)."""
     w = torch.empty((in_dim, out_dim), dtype=dtype, device=device)
+    if scheme == "reference":
+        w.uniform_(0.0, 1.0, generator=generator)
+        return {"w": w, "b": torch.full((out_dim,), 0.1, dtype=dtype,
+                                        device=device)}
+    lim = math.sqrt(6.0 / (in_dim + out_dim))
     w.uniform_(-lim, lim, generator=generator)
     return {"w": w, "b": torch.zeros(out_dim, dtype=dtype, device=device)}
 

@@ -35,6 +35,7 @@ import dataclasses
 import os
 import re
 import tempfile
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -139,12 +140,22 @@ def save(directory: str, step: int, carry, generator=None,
     state = carry_state(carry, mesh, directory)
     if state is None:
         return _path(directory, step)
+    return _write(directory, step, {
+        "step": int(step), "device": carry.history.device.type,
+        "carry": state, "generator": _generator_state(generator)},
+        max_to_keep)
+
+
+def _generator_state(generator):
+    if generator is None:
+        return None
+    return {"device": generator.device.type, "state": generator.get_state()}
+
+
+def _write(directory: str, step: int, blob: dict, max_to_keep: int) -> str:
+    """``blob`` to ``ckpt_<step>.pt`` through a temporary file and a
+    rename; all but the last ``max_to_keep`` checkpoints dropped."""
     os.makedirs(directory, exist_ok=True)
-    blob = {"step": int(step), "device": carry.history.device.type,
-            "carry": state, "generator": None}
-    if generator is not None:
-        blob["generator"] = {"device": generator.device.type,
-                             "state": generator.get_state()}
     fd, tmp = tempfile.mkstemp(prefix=".ckpt_", suffix=".tmp", dir=directory)
     try:
         with os.fdopen(fd, "wb") as f:
@@ -176,6 +187,22 @@ def _into(dst: torch.Tensor, src: torch.Tensor, what: str) -> torch.Tensor:
     return src.to(dst.device)
 
 
+def _set_generator(blob: dict, generator, directory: str, step: int):
+    saved = blob["generator"]
+    if generator is None:
+        return
+    if saved is None:
+        raise ValueError(f"checkpoint {step} in {directory} holds no "
+                         "generator state to resume the run's draws")
+    if saved["device"] != generator.device.type:
+        raise ValueError(
+            f"checkpoint {step} in {directory} was written with a "
+            f"{saved['device']} generator; it cannot resume a run that "
+            f"draws on {generator.device.type} (the random streams "
+            "differ by device)")
+    generator.set_state(saved["state"])
+
+
 def restore(directory: str, carry, generator=None, step: int | None = None,
             mesh=None):
     """Load the checkpoint at ``step`` (default the latest) into the
@@ -198,18 +225,7 @@ def restore(directory: str, carry, generator=None, step: int | None = None,
         if count is None:
             return x
         return x[lo:lo + count].to(dst.device, copy=True)
-    saved = blob["generator"]
-    if generator is not None:
-        if saved is None:
-            raise ValueError(f"checkpoint {step} in {directory} holds no "
-                             "generator state to resume the run's draws")
-        if saved["device"] != generator.device.type:
-            raise ValueError(
-                f"checkpoint {step} in {directory} was written with a "
-                f"{saved['device']} generator; it cannot resume a run that "
-                f"draws on {generator.device.type} (the random streams "
-                "differ by device)")
-        generator.set_state(saved["state"])
+    _set_generator(blob, generator, directory, step)
     s = blob["carry"]
     carry = pmesh.with_env_axis(carry, {
         k: _into(x, mine(_lookup(s, k), x), k)
@@ -254,3 +270,166 @@ def load_learner(directory: str, cfg, device=None, step: int | None = None):
     learner.target_params.load_state_dict(s["target_params"])
     learner.opt.load_state_dict(s["opt"])
     return learner, step
+
+
+# ---------------------------------------------------------------------------
+# PPO and PS-DQN / PS-DRQN runs.  The JAX package's ppo_loop.py and
+# ps_loop.py keep no checkpoint; the port's campaign drivers need one to
+# carry a run across calls with a time cap.  A checkpoint's step is the
+# number of episodes done, which is also the global index of the episode
+# the resumed run starts with.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class EpisodeStart:
+    """Where a cut PPO / PS run resumes: ``carry`` (on the run's device),
+    ``episode`` (episodes done), ``logs`` ({key: numpy array [episode]})
+    and ``seconds`` (the loop seconds that made them, as saved)."""
+
+    carry: object
+    episode: int
+    logs: dict
+    seconds: float = 0.0
+
+
+def episode_logs(prior: dict, logs: list) -> dict:
+    """A PPO / PS run's logs, key by key: ``prior`` (numpy arrays of the
+    episodes before a resume; empty for a fresh run), then ``logs`` (one
+    dict per episode of 0-dim tensors or host numbers) stacked."""
+    out = {}
+    for k in list(prior) or (list(logs[0]) if logs else []):
+        vals = [g[k] for g in logs]
+        if vals and torch.is_tensor(vals[0]):
+            new = torch.stack(vals).cpu().numpy()
+        else:
+            new = np.asarray(vals, prior[k].dtype if k in prior else None)
+        out[k] = np.concatenate([prior[k], new]) if k in prior else new
+    return out
+
+
+def _learner_state(learner, second: str) -> dict:
+    return {"params": learner.params.state_dict(),
+            second: getattr(learner, second).state_dict(),
+            "opt": learner.opt.state_dict()}
+
+
+def _learner(saved: dict, second: str, make, device):
+    """A learner built by ``make(params)`` around the saved params (on
+    ``device``, in their saved order, which the optimizer's state follows),
+    with its second net and optimizer state loaded."""
+    from diral_tpu_torch.models.qnets import ParamTree
+
+    tree = {}
+    for key, value in saved["params"].items():
+        group, leaf = key.split(".")
+        tree.setdefault(group, {})[leaf] = value.to(device, copy=True)
+    learner = make(ParamTree(tree))
+    getattr(learner, second).load_state_dict(saved[second])
+    # Adam's step counts stay where torch keeps them (host tensors)
+    learner.opt.load_state_dict(saved["opt"])
+    return learner
+
+
+def _env_state(saved: dict, device):
+    from diral_tpu_torch.envs.v2v_env import EnvState
+
+    return EnvState(**{k: v.to(device) for k, v in saved.items()})
+
+
+def _save_episodes(directory, kind, episode, state, device, logs, generator,
+                   seconds, max_to_keep):
+    return _write(directory, episode, {
+        "step": int(episode), "kind": kind, "device": device.type,
+        "carry": state, "generator": _generator_state(generator),
+        "logs": {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in logs.items()},
+        "seconds": float(seconds)}, max_to_keep)
+
+
+def _load_episodes(directory, kinds, generator, step):
+    blob, step = _load(directory, step, map_location="cpu")
+    if blob.get("kind") not in kinds:
+        raise ValueError(f"checkpoint {step} in {directory} is of a "
+                         f"{blob.get('kind') or 'DRQN'} run, not {kinds[0]}")
+    _set_generator(blob, generator, directory, step)
+    return blob, step
+
+
+def save_ppo(directory: str, episode: int, carry, logs: dict,
+             generator=None, seconds: float = 0.0, max_to_keep: int = 3):
+    """Write a PPO run after ``episode`` episodes: the carry (env_state,
+    history, learner -- params, the old-policy snapshot and Adam), the
+    logs so far (numpy arrays), ``generator``'s state and ``seconds``;
+    atomically, the last ``max_to_keep`` kept.  Returns the path."""
+    env_state, history, learner = carry
+    state = {"env_state": {f.name: getattr(env_state, f.name)
+                           for f in dataclasses.fields(env_state)},
+             "history": history,
+             "learner": _learner_state(learner, "old_params")}
+    return _save_episodes(directory, "ppo", episode, state, history.device,
+                          logs, generator, seconds, max_to_keep)
+
+
+def restore_ppo(directory: str, device, generator=None,
+                step: int | None = None) -> EpisodeStart:
+    """The PPO run saved at ``step`` (default the latest) on ``device``,
+    ``generator`` set to its saved state (refused across device types).
+    Builds the carry from the file alone: no draw is consumed."""
+    from diral_tpu_torch.agents import ppo
+
+    blob, step = _load_episodes(directory, ("ppo",), generator, step)
+    s = blob["carry"]
+    carry = (_env_state(s["env_state"], device), s["history"].to(device),
+             _learner(s["learner"], "old_params", ppo.init_learner, device))
+    return EpisodeStart(carry, step, {k: v.numpy()
+                                      for k, v in blob["logs"].items()},
+                        blob["seconds"])
+
+
+def save_ps(directory: str, episode: int, carry, logs: dict, algo: str,
+            generator=None, seconds: float = 0.0, max_to_keep: int = 3):
+    """Write a PS-DQN / PS-DRQN run (``ps_loop.PSCarry``) after ``episode``
+    episodes: env state, state, hidden, the learner with its target and
+    Adam, the replay with its host pointers, the eps schedule, the logs,
+    ``generator``'s state and ``seconds``.  Returns the path."""
+    rp = carry.replay
+    state = {"env_state": {f.name: getattr(carry.env_state, f.name)
+                           for f in dataclasses.fields(carry.env_state)},
+             "state": carry.state, "hidden": carry.hidden,
+             "learner": _learner_state(carry.learner, "target_params"),
+             "replay": {f.name: getattr(rp, f.name)
+                        for f in dataclasses.fields(rp)},
+             "eps_state": {"eps": float(carry.eps_state.eps),
+                           "episode": int(carry.eps_state.episode)}}
+    return _save_episodes(directory, algo, episode, state, carry.state.device,
+                          logs, generator, seconds, max_to_keep)
+
+
+def restore_ps(directory: str, algo: str, acfg, device, generator=None,
+               step: int | None = None) -> EpisodeStart:
+    """The ``algo`` run saved at ``step`` (default the latest) as a
+    ``ps_loop.PSCarry`` on ``device`` (``acfg``: the run's agent config,
+    for the optimizer), ``generator`` set to its saved state.  Consumes
+    no draw."""
+    from diral_tpu_torch.agents import dqn, policies, ps_drqn
+    from diral_tpu_torch.agents.replay import TransitionReplay
+    from diral_tpu_torch.train.ps_loop import PSCarry
+
+    blob, step = _load_episodes(directory, (algo,), generator, step)
+    s = blob["carry"]
+    ring = ps_drqn.EpisodeReplay if algo == "ps-drqn" else TransitionReplay
+    hidden = s["hidden"]
+    carry = PSCarry(
+        env_state=_env_state(s["env_state"], device),
+        state=s["state"].to(device),
+        hidden=None if hidden is None else hidden.to(device),
+        learner=_learner(s["learner"], "target_params",
+                         lambda p: dqn.init_learner(p, acfg), device),
+        replay=ring(**{k: v.to(device) if torch.is_tensor(v) else v
+                       for k, v in s["replay"].items()}),
+        eps_state=policies.EpsGreedyState(
+            eps=np.float32(s["eps_state"]["eps"]),
+            episode=s["eps_state"]["episode"]))
+    return EpisodeStart(carry, step, {k: v.numpy()
+                                      for k, v in blob["logs"].items()},
+                        blob["seconds"])

@@ -548,3 +548,25 @@ def make_train_functions(cfg: ExperimentConfig, dtype=torch.float32,
     reference's load_positions fixture, main_test.py:118).  ``mesh``: a
     parallel/mesh.py ``Mesh`` this process is a rank of."""
     return TrainFunctions(cfg, dtype, device, trace, mesh)
+
+
+def run_experiment(cfg: ExperimentConfig, seed: int | None = None,
+                   num_slots: int | None = None, dtype=torch.float32,
+                   device=None):
+    """Build the loop and run it (loop.py:709-714): the warmup and
+    pretrain, then ``num_slots`` slots (default ``time_slots``), all drawn
+    from one generator seeded ``seed`` (default ``cfg.engine.seed``).
+    Returns (carry, logs): the runner's host arrays (sum_reward [T, B],
+    actions [T, B, N], loss [T], eps [T], pos_x with save_positions)."""
+    from diral_tpu_torch.train import runner
+
+    fns = make_train_functions(cfg, dtype, device)
+    draws = Draws(torch.Generator(device=fns.device).manual_seed(
+        int(cfg.engine.seed if seed is None else seed)))
+    carry = fns.init_carry(draws)
+    n = cfg.time_slots if num_slots is None else num_slots
+    logs = {}
+    for carry, _, logs in runner.run_chunks(fns, carry, draws, 0, n, n,
+                                            dtype):
+        pass
+    return carry, logs

@@ -35,6 +35,7 @@ from diral_tpu_torch.config import ExperimentConfig
 from diral_tpu_torch.device import resolve_device
 from diral_tpu_torch.envs import v2v_env as E
 from diral_tpu_torch.models import actor_critic as ac
+from diral_tpu_torch.train import checkpoint as ckpt
 
 
 class PPODraws:
@@ -167,19 +168,36 @@ class PPOFunctions:
         logs = {"mean_sum_reward": traj["sum_r"].mean() / self.B, **metrics}
         return (env_state, history, learner), logs
 
-    def run(self, draws: PPODraws, num_episodes: int, learner=None):
-        """init_state, a fresh learner (or ``learner``) and
-        ``num_episodes`` episodes.  Returns (learner, logs {key: numpy
-        array [num_episodes]})."""
-        env_state, history = self.init_state(draws)
-        if learner is None:
-            learner = self.init_learner(draws)
-        carry, logs = (env_state, history, learner), []
-        for ep in range(num_episodes):
+    def run(self, draws: PPODraws, num_episodes: int, learner=None,
+            start=None, after_episode=None):
+        """init_state, a fresh learner (or ``learner``) and episodes 0 ..
+        ``num_episodes`` - 1.  Returns (learner, logs {key: numpy array
+        [num_episodes]}).
+
+        ``start`` (a ``checkpoint.EpisodeStart``, from
+        ``checkpoint.restore_ppo`` with ``draws``' generator) resumes a
+        cut run: its carry, at its episode, after its logs, without
+        ``init_state`` (whose draws the cut run took already), so the
+        resumed run equals the uncut one.  ``after_episode(e, carry,
+        logs)`` is called with e episodes done; ``logs()`` gives the logs
+        so far."""
+        if start is None:
+            env_state, history = self.init_state(draws)
+            if learner is None:
+                learner = self.init_learner(draws)
+            carry, e0, prior = (env_state, history, learner), 0, {}
+        else:
+            carry, e0, prior = start.carry, start.episode, start.logs
+        logs = []
+
+        def so_far():
+            return ckpt.episode_logs(prior, logs)
+        for ep in range(e0, num_episodes):
             carry, log = self.episode(carry, ep, draws)
             logs.append(log)
-        return carry[2], {k: torch.stack([g[k] for g in logs]).cpu().numpy()
-                          for k in logs[0]} if logs else {}
+            if after_episode is not None:
+                after_episode(ep + 1, carry, so_far)
+        return carry[2], so_far()
 
 
 def make_ppo_functions(cfg: ExperimentConfig, dtype=torch.float32,

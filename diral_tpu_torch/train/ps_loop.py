@@ -32,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from diral_tpu_torch.agents import dqn, ps_drqn
@@ -42,6 +41,7 @@ from diral_tpu_torch.config import AgentConfig, ExperimentConfig
 from diral_tpu_torch.device import resolve_device
 from diral_tpu_torch.envs import v2v_env as E
 from diral_tpu_torch.models import qnets
+from diral_tpu_torch.train import checkpoint as ckpt
 
 ALGOS = ("ps-dqn", "ps-drqn")
 
@@ -241,18 +241,30 @@ class PSFunctions:
                 "loss": loss, "eps": carry.eps_state.eps}
         return carry, logs
 
-    def run(self, draws: PSDraws, num_episodes: int, learner=None):
-        """init_carry and ``num_episodes`` episodes.  Returns (carry, logs
-        {key: numpy array [num_episodes]})."""
-        carry = self.init_carry(draws, learner)
+    def run(self, draws: PSDraws, num_episodes: int, learner=None,
+            start=None, after_episode=None):
+        """init_carry and episodes 0 .. ``num_episodes`` - 1.  Returns
+        (carry, logs {key: numpy array [num_episodes]}).
+
+        ``start`` (a ``checkpoint.EpisodeStart``, from
+        ``checkpoint.restore_ps`` with ``draws``' generator) resumes a cut
+        run at its episode without ``init_carry`` (whose draws the cut run
+        took already); ``after_episode(e, carry, logs)`` is called with e
+        episodes done, ``logs()`` giving the logs so far."""
+        if start is None:
+            carry, e0, prior = self.init_carry(draws, learner), 0, {}
+        else:
+            carry, e0, prior = start.carry, start.episode, start.logs
         logs = []
-        for ep in range(num_episodes):
+
+        def so_far():
+            return ckpt.episode_logs(prior, logs)
+        for ep in range(e0, num_episodes):
             carry, log = self.episode(carry, ep, draws)
             logs.append(log)
-        out = {k: torch.stack([g[k] for g in logs]).cpu().numpy()
-               for k in ("mean_sum_reward", "loss")} if logs else {}
-        out["eps"] = np.asarray([g["eps"] for g in logs], np.float32)
-        return carry, out
+            if after_episode is not None:
+                after_episode(ep + 1, carry, so_far)
+        return carry, so_far()
 
 
 def make_ps_functions(cfg: ExperimentConfig, algo: str, dtype=torch.float32,

@@ -61,10 +61,15 @@ def test_package_imports_no_jax():
                  "interop.bridge", "interop.gateway_env", "interop.serve",
                  "interop.wire", "scripts.serve_campaign", "bench",
                  "scripts.bench_event", "scripts.kernel_ceiling",
-                 "scripts.profile_slot"):
+                 "scripts.profile_slot", "scripts.episode_campaign",
+                 "scripts.ppo_campaign", "scripts.ps_campaign",
+                 "scripts.episode_rate", "utils.plotting"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
+    # the card's machine has no matplotlib: plotting imports it only when
+    # it draws
+    assert not [m for m in res["loaded"] if m.split(".")[0] == "matplotlib"]
 
 
 @pytest.mark.parametrize("path", [
@@ -155,6 +160,19 @@ def test_entry_points_default_to_cuda():
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
         assert out.returncode != 0 and "no CUDA device" in out.stderr, argv
+    for script in ("ppo_campaign", "ps_campaign"):
+        out = subprocess.run(
+            [sys.executable, "-m", f"diral_tpu_torch.scripts.{script}",
+             "--seeds", "1", "--episodes", "1", "--out",
+             os.path.join("build", "tests", "refused.json")],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, script
+    out = subprocess.run(
+        [sys.executable, "-m", "diral_tpu_torch.scripts.episode_rate",
+         "ps-dqn:1:1"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.run_experiment(cfg, num_slots=1)
 
 
 def test_cli_on_cpu_and_checkpoint_refused(tmp_path):
