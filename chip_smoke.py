@@ -99,8 +99,10 @@ failure exits non-zero:
    (g) online serving (diral_tpu_torch/interop): the port's C++ RealNeS
        stand-in built from the checkout (g++, no protobuf), then the
        ``serve`` verb at 8 users / 6 channels: ``--mode compare`` for 200
-       rounds, ``ps-dqn`` and ``drqn-rssi`` for 100 each (framed; zmq
-       too where pyzmq imports and libzmq.so.5 loads), each with finite
+       rounds, ``ps-dqn``, ``drqn-rssi`` and ``drqn`` for 100 each over
+       framed, then ``drqn`` over zmq (the simulator loading the libzmq
+       ``transport.libzmq_path`` finds, pyzmq's bundled copy on a machine
+       without a system one; none is a failure), each with finite
        stats and losses, rounds / 10 train calls and its learner on the
        card, its requests/s and host ms per request (waiting on the
        simulator, inference, training); no K1-K7 launch; a torch.profiler
@@ -146,6 +148,13 @@ failure exits non-zero:
        then ``drqn.qvalues_all_agents`` at 100v/50r (100 agents) through
        K1, its last hidden state in the K1 class of K1's plain version
        and its Q within 1e-3 of the largest of the plain path's;
+   (k) the reference's six-config suite (diral_tpu_torch/scripts/
+       ref_sweep.py), 600 slots a config, ``--save-freq 100``, a 20-slot
+       eval on 16 envs: uncut in this process with the launch counters
+       around it (K1, K2, K3 at D = 13, 23 and 43; none of K4-K7), then
+       cut after the first config's second checkpoint and started again
+       with ``--jobs 2`` -- rows bit-equal apart from timings, the cut
+       config resumed from slot 200, the others run from slot 0;
    then the script's total seconds;
 13. a ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
@@ -1657,14 +1666,106 @@ def episode_campaign_phase(torch, np, here, dev, zero_counts, read_counts,
         failures.append("qvalues_all_agents through K1")
 
 
+def ref_sweep_phase(torch, np, here, zero_counts, read_counts, failures,
+                    slots=600, save_freq=100, extra=()):
+    """(k) ``ref_sweep``, the reference's six-config suite, on the card at
+    ``slots`` slots a config (train events from slot 524), ``--save-freq``
+    ``save_freq``, a 20-slot eval on 16 envs.  Uncut in this process,
+    with the launch counters around it (K1-K3 at D = 13 / 23 / 43, H =
+    256; K4-K7 never: N = 4); then cut by a checkpoint write that raises
+    after the first config's second checkpoint and started again with
+    ``--jobs 2``: rows bit-equal to the uncut suite's apart from their
+    timing fields, the first config resumed from its checkpoint, the
+    others run from slot 0.  ``extra``: more options for every run
+    (``("--device", "cpu")`` rehearses the phase on the CPU)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from diral_tpu_torch.scripts import ref_sweep
+    from diral_tpu_torch.train import checkpoint as ckpt
+
+    def quiet(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return ref_sweep.main(argv)
+
+    def results(artifact):
+        return [{k: v for k, v in r.items()
+                 if k not in ref_sweep.seed_campaign.RUN_FIELDS}
+                for r in artifact["rows"]]
+
+    root = tempfile.mkdtemp(prefix="diral_ref_sweep_")
+    args = ["--slots", str(slots), "--save-freq", str(save_freq),
+            "--eval-steps", "20", "--eval-envs", "16", *extra]
+    first = ref_sweep.SUITE[0][0]
+    real_save = ckpt.save
+    saves = []
+
+    def cutting_save(directory, step, *a, **k):
+        path = real_save(directory, step, *a, **k)
+        if f"{os.sep}{first}{os.sep}" in str(directory):
+            saves.append(step)
+            if len(saves) == 2:
+                raise RuntimeError(f"cut after {first}'s second checkpoint")
+        return path
+
+    try:
+        label = f"ref_sweep (6 configs x {slots} slots)"
+        zero_counts()
+        t0 = time.perf_counter()
+        uncut = quiet([os.path.join(root, "uncut"), *args])
+        t_uncut = time.perf_counter() - t0
+        counts = read_counts(label)
+        cut_argv = [os.path.join(root, "cut"), *args]
+        ckpt.save = cutting_save
+        t0 = time.perf_counter()
+        try:
+            quiet(cut_argv)
+            was_cut = False
+        except RuntimeError:
+            was_cut = True
+        finally:
+            ckpt.save = real_save
+        again = quiet([*cut_argv, "--jobs", "2"])
+        t_cut = time.perf_counter() - t0
+        same = results(again) == results(uncut)
+        resumed = [r["resumed_from"] for r in again["rows"]]
+        widths = [r["state_space"] for r in uncut["rows"]]
+        ok = (was_cut and same and saves == [save_freq, 2 * save_freq]
+              and resumed == [[2 * save_freq]] + [[]] * 5
+              and widths == [13, 23, 23, 23, 23, 43]
+              and all(counts[k] >= 6 for k in ("K1", "K2", "K3"))
+              and not any(counts[k] for k in ("K4", "K5", "K6", "K7"))
+              and finite(np, [r["prr_improvement"] for r in uncut["rows"]],
+                         [r["reward_curve_deciles"] for r in uncut["rows"]]))
+        log(f"ref_sweep 6 configs x {slots} slots (--save-freq {save_freq}, "
+            f"eval 20 x 16 envs): uncut {t_uncut:.2f} s in this process, "
+            f"cut at {first}'s slot {2 * save_freq} and restarted with "
+            f"--jobs 2 {t_cut:.2f} s; rows "
+            f"{'bit-equal' if same else 'DIFFER'} apart from timings, "
+            f"resumed_from {resumed}; state_space {widths}; launches in "
+            f"the uncut suite {counts}; ΔPRR "
+            f"{[r['prr_improvement'] for r in uncut['rows']]}, slots/s "
+            f"{[r['slots_per_sec'] for r in uncut['rows']]} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("ref_sweep cut and restarted")
+    finally:
+        ckpt.save = real_save
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
                 compare_rounds=200, rounds=100):
     """(g) Online serving on the card: the port's C++ RealNeS stand-in
     built from the checkout, then the ``serve`` verb (8 users, 6 channels,
     ``--train-every 10 --n-batches 4 --eps 0.5``) in ``compare`` mode for
     ``compare_rounds`` rounds and in ``ps-dqn`` and ``drqn-rssi`` modes
-    for ``rounds`` each, over the framed transport (and over zmq where
-    pyzmq imports and the simulator can load libzmq.so.5).  Each run must
+    for ``rounds`` each, over the framed transport, then ``drqn`` over
+    framed and over zmq (the simulator loading the libzmq that
+    ``transport.libzmq_path`` finds: the system's, else pyzmq's bundled
+    copy; none is a failure), their requests/s side by side.  Each run must
     give finite stats and losses, rounds / train_every train calls and a
     learner whose every tensor is on the card; it prints its requests/s
     and the host ms per request spent waiting on the simulator, in
@@ -1672,7 +1773,7 @@ def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
     ``drqn`` gives the device's busy share per request.  The serve path
     launches none of K1-K7: their counters must stay at 0."""
     from diral_tpu_torch.interop import gateway_env, serve
-    from diral_tpu_torch.interop.transport import libzmq_error
+    from diral_tpu_torch.interop.transport import libzmq_error, libzmq_path
     from diral_tpu_torch.train import cli
 
     t0 = time.perf_counter()
@@ -1707,17 +1808,20 @@ def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
                 f"{1e3 * timing['train_s'] / n:.4f}, total "
                 f"{1e3 * timing['seconds'] / n:.4f}")
 
-    zmq_why = libzmq_error()
+    zmq_lib, zmq_why = libzmq_path(), libzmq_error()
     try:
         import zmq  # noqa: F401
     except ImportError:
         zmq_why = "pyzmq is not installed"
     runs = [("compare", compare_rounds, "framed"), ("ps-dqn", rounds, "framed"),
-            ("drqn-rssi", rounds, "framed")]
+            ("drqn-rssi", rounds, "framed"), ("drqn", rounds, "framed")]
     if zmq_why is None:
+        log(f"serve --transport zmq: the simulator loads {zmq_lib}")
         runs.append(("drqn", rounds, "zmq"))
     else:
-        log(f"serve --transport zmq: not run ({zmq_why})")
+        log(f"serve --transport zmq: FAIL, no libzmq to load ({zmq_why})")
+        failures.append("serve --transport zmq: no libzmq")
+    rates = {}
     serve.serve_and_learn = spy(real["serve_and_learn"])
     serve.serve_and_learn_dqn = spy(real["serve_and_learn_dqn"])
     try:
@@ -1759,6 +1863,8 @@ def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
                 log(f"serve --mode {mode} --transport {transport} "
                     f"({n_rounds} rounds x 8 users, {who}): "
                     + per_request(stats["timing"]))
+            if learned and mode == "drqn":
+                rates[transport] = learned["timing"]
             log(f"serve --mode {mode} --transport {transport}: {wall:.2f} s, "
                 + (f"mean PRR {learned['mean_prr']:.4f}, tail "
                    f"{learned['mean_prr_tail']:.4f}, train calls "
@@ -1771,6 +1877,15 @@ def serve_phase(torch, np, here, card, zero_counts, peek_counts, failures,
                 + (" ok" if ok else f" FAIL ({', '.join(bad)})"))
             if not ok:
                 failures.append(f"serve --mode {mode} --transport {transport}")
+        if len(rates) == 2:
+            per = {t: (v["requests"] / v["seconds"],
+                       1e3 * v["seconds"] / max(v["requests"], 1))
+                   for t, v in rates.items()}
+            log(f"serve --mode drqn, zmq beside framed: "
+                f"{per['zmq'][0]:.1f} against {per['framed'][0]:.1f} "
+                f"requests/s ({per['zmq'][0] / per['framed'][0]:.3f}x), "
+                f"{per['zmq'][1]:.4f} against {per['framed'][1]:.4f} host "
+                f"ms a request")
         counts = peek_counts()
         log(f"serve: K1-K7 launches over the serve runs {counts} "
             f"{'ok' if not any(counts.values()) else 'FAIL'}")
@@ -2667,6 +2782,8 @@ def main() -> int:
     episode_campaign_phase(torch, np, here, dev, zero_counts, read_counts,
                            failures)
     mark("(j) ppo_campaign, ps_campaign, qvalues_all_agents")
+    ref_sweep_phase(torch, np, here, zero_counts, read_counts, failures)
+    mark("(k) ref_sweep")
     log(f"total {time.perf_counter() - started:.1f} s")
 
     # 13. results

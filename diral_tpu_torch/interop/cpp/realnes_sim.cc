@@ -36,9 +36,12 @@
 //   framed  4-byte big-endian length + protobuf payload (transport.py's
 //           framed flavor)
 //   zmq     real libzmq REQ/REP (the reference's actual wire,
-//           realness_bridge.py:25-43), loaded at runtime via dlopen of
-//           libzmq.so.5 -- the image ships the library but no dev headers,
-//           so the stable zmq C ABI is declared locally below.
+//           realness_bridge.py:25-43), loaded at runtime via dlopen --
+//           of the library named by the optional argument after the
+//           transport (the agent side passes the one it found, e.g. the
+//           copy bundled in pyzmq's wheel), else of libzmq.so.5 /
+//           libzmq.so.  No dev headers are needed: the stable zmq C ABI
+//           is declared locally below.
 //
 // Build: see Makefile (g++ -ldl -lpthread).  The messages go through
 // wire.h, a hand-written proto2 codec with the generated classes' method
@@ -158,8 +161,13 @@ struct FramedTcpReq : Transport {
   ~FramedTcpReq() override { ::close(fd); }
 };
 
-// Minimal libzmq ABI, resolved at runtime (dlopen libzmq.so.5 / .so).
-// Constants and signatures per the public, ABI-stable zmq.h.
+// The libzmq to dlopen: set from the command line before the first
+// ZmqLib::get(); empty means libzmq.so.5, then libzmq.so.
+std::string g_libzmq_path;
+
+// Minimal libzmq ABI, resolved at runtime (dlopen of g_libzmq_path, or
+// libzmq.so.5 / .so).  Constants and signatures per the public, ABI-stable
+// zmq.h.
 struct ZmqLib {
   static constexpr int REQ = 3, REP = 4, LINGER = 17, RCVTIMEO = 27,
                        SNDTIMEO = 28;
@@ -181,8 +189,13 @@ struct ZmqLib {
 
   static ZmqLib* get() {
     static ZmqLib* lib = [] {
-      void* h = dlopen("libzmq.so.5", RTLD_NOW | RTLD_GLOBAL);
-      if (!h) h = dlopen("libzmq.so", RTLD_NOW | RTLD_GLOBAL);
+      void* h = nullptr;
+      if (!g_libzmq_path.empty()) {
+        h = dlopen(g_libzmq_path.c_str(), RTLD_NOW | RTLD_GLOBAL);
+      } else {
+        h = dlopen("libzmq.so.5", RTLD_NOW | RTLD_GLOBAL);
+        if (!h) h = dlopen("libzmq.so", RTLD_NOW | RTLD_GLOBAL);
+      }
       if (!h) return static_cast<ZmqLib*>(nullptr);
       auto* z = new ZmqLib();
       auto sym = [&](const char* n) { return dlsym(h, n); };
@@ -483,7 +496,7 @@ int main(int argc, char** argv) {
   if (argc < 6) {
     std::cerr << "usage: realnes_sim <host> <port> <num_users> <num_channels>"
                  " <rounds> [seed] [reward_port] [mode: dist|syn|sps]"
-                 " [transport: framed|zmq]\n";
+                 " [transport: framed|zmq] [libzmq path]\n";
     return 2;
   }
   std::string host = argv[1];
@@ -495,6 +508,7 @@ int main(int argc, char** argv) {
   int reward_port = argc > 7 ? std::atoi(argv[7]) : 0;
   std::string mode = argc > 8 ? argv[8] : "dist";
   std::string transport = argc > 9 ? argv[9] : "framed";
+  if (argc > 10) g_libzmq_path = argv[10];
   if (mode != "dist" && mode != "syn" && mode != "sps") {
     std::cerr << "unknown mode " << mode << "\n";
     return 2;
@@ -517,7 +531,14 @@ int main(int argc, char** argv) {
   if (transport == "zmq") {
     auto zreq = std::make_unique<ZmqReq>(host, port);
     if (!zreq->ok()) {
-      std::cerr << "libzmq unavailable (dlopen failed)\n";
+      std::cerr << "libzmq unavailable (dlopen of "
+                << (g_libzmq_path.empty() ? "libzmq.so.5 / libzmq.so"
+                                          : g_libzmq_path)
+                << " failed)\n";
+      // the zmq collector returns at once without the library (and polls
+      // the stop flag with it): join it, so the exit is a clean 1
+      stop = true;
+      if (collector.joinable()) collector.join();
       return 1;
     }
     t = std::move(zreq);

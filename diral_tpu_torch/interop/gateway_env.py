@@ -15,9 +15,10 @@ Copied from diral_tpu/interop/gateway_env.py (numpy, no torch).  What
 differs: the simulator is the port's copy (``cpp/``, built with g++
 alone against the ``wire.h`` codec) and builds at first use into
 ``build/diral_tpu_torch/`` at the repository root, named by its sources'
-hash, never into the source tree; and a ``zmq`` session refuses to start
-where the simulator could not load libzmq, instead of waiting out the
-bridge's timeout."""
+hash, never into the source tree; a ``zmq`` session hands the simulator
+the libzmq that ``transport.libzmq_path`` found (the system's, else the
+copy in pyzmq's wheel), and refuses to start where there is none, instead
+of waiting out the bridge's timeout."""
 
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 from diral_tpu_torch.interop.bridge import RealNeSBridge
-from diral_tpu_torch.interop.transport import libzmq_error
+from diral_tpu_torch.interop.transport import libzmq_error, libzmq_path
 
 CPP_DIR = Path(__file__).resolve().parent / "cpp"
 BUILD_DIR = CPP_DIR.parents[2] / "build" / "diral_tpu_torch"
@@ -219,12 +220,14 @@ class GatewayEnv:
     # -- simulator process control (realness_env.py:224-252) ------------
 
     def start_realnes(self):
+        zmq_lib = None
         if self.sim_transport == "zmq":
             why = libzmq_error()
             if why is not None:
                 raise RuntimeError(
-                    "transport 'zmq': the simulator loads libzmq.so.5 at run "
-                    f"time and cannot here ({why}); use 'framed'")
+                    "transport 'zmq': the simulator loads libzmq at run time "
+                    f"and cannot here ({why}); use 'framed'")
+            zmq_lib = libzmq_path()
         binary = build_simulator()
         argv = [binary, "127.0.0.1", str(self.port), str(self.sim_users),
                 str(self.sim_channels), str(self.sim_rounds),
@@ -236,6 +239,8 @@ class GatewayEnv:
             argv.append(self.sim_mode)
         if nondefault_tail:
             argv.append(self.sim_transport)
+        if zmq_lib is not None:
+            argv.append(zmq_lib)
         self.sim_process = subprocess.Popen(
             argv, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         )

@@ -19,6 +19,8 @@ Construct through ``make_rep_socket`` / ``make_req_socket`` so callers
 
 from __future__ import annotations
 
+import glob
+import os
 import socket
 import struct
 import time
@@ -165,19 +167,49 @@ def _zmq():
     return zmq
 
 
-def libzmq_error() -> str | None:
-    """Why the C++ simulator's zmq transport cannot run here (it dlopens
-    libzmq.so.5 or libzmq.so, as realnes_sim.cc does), or None."""
+def libzmq_candidates() -> list[str]:
+    """The libraries the C++ simulator's zmq transport may load, in the
+    order they are tried: the system's ``libzmq.so.5`` and ``libzmq.so``,
+    then the copy pyzmq's wheel bundles beside itself
+    (``site-packages/pyzmq.libs/libzmq-<hash>.so*``, whose RPATH
+    ``$ORIGIN`` finds its sibling libsodium).  A machine with pyzmq and no
+    system libzmq serves over zmq through the bundled copy."""
+    names = ["libzmq.so.5", "libzmq.so"]
+    try:
+        import zmq
+    except ImportError:
+        return names
+    site = os.path.dirname(os.path.dirname(os.path.abspath(zmq.__file__)))
+    return names + sorted(glob.glob(os.path.join(site, "pyzmq.libs",
+                                                 "libzmq*.so*")))
+
+
+def _probe_libzmq() -> tuple[str | None, list[str]]:
     import ctypes
 
     errors = []
-    for name in ("libzmq.so.5", "libzmq.so"):
+    for name in libzmq_candidates():
         try:
             ctypes.CDLL(name)
-            return None
+            return name, errors
         except OSError as e:
-            errors.append(str(e))
-    return "; ".join(errors)
+            errors.append(f"{name}: {e}")
+    return None, errors
+
+
+def libzmq_path() -> str | None:
+    """The first of ``libzmq_candidates()`` that loads, or None; the
+    simulator is handed this name and loads nothing else."""
+    return _probe_libzmq()[0]
+
+
+def libzmq_error() -> str | None:
+    """Why ``libzmq_path()`` found no library (every candidate tried,
+    with its loader error), or None when it found one."""
+    path, errors = _probe_libzmq()
+    if path is not None:
+        return None
+    return "no loadable libzmq; tried " + "; ".join(errors)
 
 
 class ZmqRepSocket:

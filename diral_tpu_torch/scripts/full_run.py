@@ -27,8 +27,9 @@ departures); none changes a number of the run:
   curve of the slots before the restore.  ``train_seconds`` and
   ``slots_per_sec`` cover the last start only: the slots it trained over
   its seconds.
-* ``<workdir>/run.json`` holds the first start's config path, options
-  and a hash of the loaded config; a later start with any difference
+* ``<workdir>/run.json`` holds the first start's config path (or the
+  name of a config given in code), options and a hash of the loaded
+  config; a later start with any difference
   refuses and names the field.
 * ``--save-freq N`` overrides the config's ``save_freq``: how often the
   run checkpoints and dumps its results (and the size of its log
@@ -139,10 +140,14 @@ def guard(workdir: str, ident: dict) -> dict:
     return record
 
 
-def setup(config: str, *, slots=None, num_envs=None, seed=0,
+def setup(config, *, name=None, slots=None, num_envs=None, seed=0,
           eval_steps=500, eval_envs=16, dtype=None, save_freq=None,
           device=None, campaign=False):
     """(the run's config, its device, its ``run.json`` identity).
+
+    ``config``: a YAML path, or an ``ExperimentConfig`` with ``name``, the
+    label that stands for it in ``run.json`` and the summary (ref_sweep's
+    suite builds its configs in code).
 
     ``campaign``: seed_campaign's settings -- no model, result or
     position files, as in the JAX campaign, unless ``save_freq`` is given:
@@ -150,26 +155,33 @@ def setup(config: str, *, slots=None, num_envs=None, seed=0,
     best snapshot) and dumps its results for the reward curve of a
     resumed run."""
     dev = resolve_device(device)
-    cfg = configure(load_config(config), slots, num_envs, dtype, save_freq)
+    if isinstance(config, ExperimentConfig):
+        if not name:
+            raise ValueError("a config given as an ExperimentConfig needs "
+                             "a name for run.json")
+        base = config
+    else:
+        base, name = load_config(config), config
+    cfg = configure(base, slots, num_envs, dtype, save_freq)
     if campaign:
         cfg = dataclasses.replace(cfg, save_model=False,
                                   save_results=save_freq is not None,
                                   save_positions=False)
     else:
         cfg = dataclasses.replace(cfg, save_model=True, save_results=True)
-    ident = dict(config=config, slots=slots, num_envs=num_envs, seed=seed,
+    ident = dict(config=name, slots=slots, num_envs=num_envs, seed=seed,
                  eval_steps=eval_steps, eval_envs=eval_envs, dtype=dtype,
                  save_freq=save_freq, device=dev.type, campaign=campaign,
                  config_sha256=hashlib.sha256(repr(cfg).encode()).hexdigest())
     return cfg, dev, ident
 
 
-def run(config: str, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
+def run(config, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
         verbose=True, **options) -> dict:
     """Train ``config``'s schedule into ``workdir`` (resuming from its
     newest checkpoint), evaluate the final learner against SPS, write
-    ``<workdir>/summary.json``; returns the summary.  ``options``:
-    ``setup``'s."""
+    ``<workdir>/summary.json``; returns the summary.  ``config`` and
+    ``options`` (``name`` among them): ``setup``'s."""
     cfg, dev, ident = setup(config, seed=seed, eval_steps=eval_steps,
                             eval_envs=eval_envs, **options)
     os.makedirs(workdir, exist_ok=True)
@@ -210,7 +222,7 @@ def run(config: str, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
                                         steps=eval_steps, dtype=float_dtype,
                                         device=dev)
     summary = {
-        "config": config,
+        "config": ident["config"],
         "time_slots": cfg.time_slots,
         "train_seconds": round(train_s, 1),
         "slots_per_sec": round((cfg.time_slots - timing["start_slot"])

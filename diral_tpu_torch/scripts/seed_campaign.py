@@ -6,12 +6,13 @@ distribution the RESULTS.md tables render from.
     python -m diral_tpu_torch.scripts.seed_campaign <config.yaml> <out.json>
         [--seeds 5] [--slots N] [--eval-steps 500] [--eval-envs 16]
         [--dtype D] [--save-freq N] [--workdir ROOT] [--jobs J]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--reference JAX.json]
 
 ``out`` has the JAX artifact's keys (``config``, ``time_slots``,
 ``seeds``, ``eval_steps``, ``eval_envs``, ``cli``, ``rows``,
 ``prr_improvement_mean`` / ``_std`` (ddof 1) / ``_min`` / ``_max``,
-``n_below_sps``) and ``device``; each row has JAX's keys (``seed``,
+``n_below_sps``), ``device`` and, with ``--reference``, ``checks``: the
+band checks against that JAX campaign.  Each row has JAX's keys (``seed``,
 ``train_seconds``, ``slots_per_sec``, ``final_decile_sum_reward``,
 ``reward_curve_deciles``, ``drqn_prr``, ``sps_prr``,
 ``prr_improvement``) and ``device``, ``resumed_from``, ``init_seconds``,
@@ -49,16 +50,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import multiprocessing
 import os
 import shlex
 import sys
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
 from diral_tpu_torch.device import resolve_device
-from diral_tpu_torch.scripts import full_run
+from diral_tpu_torch.scripts import episode_campaign, full_run
 
 # a row's fields that say how and where its seed ran, not what it learned
 RUN_FIELDS = ("train_seconds", "slots_per_sec", "init_seconds",
@@ -86,6 +85,12 @@ def seed_row(seed: int, summary: dict) -> dict:
     return row
 
 
+def run_ident(**kw) -> dict:
+    """The ``run.json`` identity of a ``full_run.run`` task."""
+    return full_run.setup(**{k: v for k, v in kw.items()
+                             if k not in ("workdir", "verbose")})[2]
+
+
 def campaign_stats(rows) -> dict:
     """The distribution of the rows' PRR improvements
     (scripts/seed_campaign.py:98-110)."""
@@ -101,45 +106,47 @@ def campaign_stats(rows) -> dict:
     }
 
 
+# SPS PRR's rule: within this of the JAX campaign's.  Every seed
+# evaluates with rollouts seeded 1, so each package's SPS PRR is one value
+# for all its seeds and the band test's stds are 0.
+SPS_PRR_TOLERANCE = 0.01
+
+
+def checks(rows, reference) -> dict:
+    """The band checks against the JAX campaign's rows: ΔPRR in the band
+    (population stds), the count below SPS, SPS PRR within
+    ``SPS_PRR_TOLERANCE``."""
+    def col(rs, key):
+        return [r[key] for r in rs]
+    sps = episode_campaign.band(col(rows, "sps_prr"), col(reference,
+                                                          "sps_prr"))
+    sps.update(limit=SPS_PRR_TOLERANCE,
+               inside=sps["abs_diff"] <= SPS_PRR_TOLERANCE)
+    return {
+        "prr_improvement": episode_campaign.band(
+            col(rows, "prr_improvement"), col(reference, "prr_improvement")),
+        "n_below_sps": campaign_stats(rows)["n_below_sps"],
+        "jax_n_below_sps": campaign_stats(reference)["n_below_sps"],
+        "sps_prr": sps,
+    }
+
+
 def run_campaign(config: str, out: str, *, seeds=5, slots=None,
                  eval_steps=500, eval_envs=16, dtype=None, save_freq=None,
-                 workdir=None, jobs=1, device=None, cli=None) -> dict:
+                 workdir=None, jobs=1, device=None, reference=None,
+                 cli=None) -> dict:
     """Run (or finish) the campaign and write ``out``; returns its
     summary."""
     dev = resolve_device(device)
     root = workdir or os.path.splitext(out)[0] + "_seeds"
-    runs = {k: dict(config=config, workdir=os.path.join(root, f"seed{k}"),
-                    slots=slots, seed=k, eval_steps=eval_steps,
-                    eval_envs=eval_envs, dtype=dtype, save_freq=save_freq,
-                    device=dev.type, campaign=True, verbose=False)
-            for k in range(seeds)}
-    summaries = {}
-    for k, kw in runs.items():
-        path = os.path.join(kw["workdir"], "summary.json")
-        if os.path.exists(path):
-            opts = {n: v for n, v in kw.items()
-                    if n not in ("workdir", "verbose")}
-            full_run.guard(kw["workdir"], full_run.setup(**opts)[2])
-            with open(path) as f:
-                summaries[k] = json.load(f)
-            print(f"seed {k}: finished earlier, its summary read back",
-                  flush=True)
-    todo = [k for k in runs if k not in summaries]
-    if jobs > 1 and len(todo) > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(min(jobs, len(todo)), mp_context=ctx) as ex:
-            futures = {k: ex.submit(full_run.run, **runs[k]) for k in todo}
-            for k in todo:
-                summaries[k] = futures[k].result()
-                print(f"seed {k}: {json.dumps(seed_row(k, summaries[k]))}",
-                      flush=True)
-    else:
-        for k in todo:
-            summaries[k] = full_run.run(**runs[k])
-            print(f"seed {k}: {json.dumps(seed_row(k, summaries[k]))}",
-                  flush=True)
-
-    rows = [seed_row(k, summaries[k]) for k in range(seeds)]
+    tasks = {f"seed {k}": dict(
+        config=config, workdir=os.path.join(root, f"seed{k}"), slots=slots,
+        seed=k, eval_steps=eval_steps, eval_envs=eval_envs, dtype=dtype,
+        save_freq=save_freq, device=dev.type, campaign=True, verbose=False)
+        for k in range(seeds)}
+    summaries = episode_campaign.run_seeds(tasks, full_run.run, run_ident,
+                                           jobs)
+    rows = [seed_row(k, s) for k, s in enumerate(summaries)]
     first = summaries[0]
     summary = {
         "config": config,
@@ -153,6 +160,9 @@ def run_campaign(config: str, out: str, *, seeds=5, slots=None,
         **campaign_stats(rows),
         "device": full_run.device_info(dev),
     }
+    if reference:
+        with open(reference) as f:
+            summary["checks"] = checks(rows, json.load(f)["rows"])
     if os.path.dirname(out):
         os.makedirs(os.path.dirname(out), exist_ok=True)
     full_run.write_json(out, summary)
@@ -183,6 +193,9 @@ def parser() -> argparse.ArgumentParser:
                    help="seeds trained at a time, one process each")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
+    p.add_argument("--reference", default=None,
+                   help="the JAX campaign artifact to compute the band "
+                        "checks against (e.g. results/congested_seeds5.json)")
     return p
 
 
@@ -195,7 +208,8 @@ def main(argv=None) -> dict:
                         slots=args.slots, eval_steps=args.eval_steps,
                         eval_envs=args.eval_envs, dtype=args.dtype,
                         save_freq=args.save_freq, workdir=args.workdir,
-                        jobs=args.jobs, device=args.device, cli=cli)
+                        jobs=args.jobs, device=args.device,
+                        reference=args.reference, cli=cli)
 
 
 if __name__ == "__main__":

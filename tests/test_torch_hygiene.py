@@ -63,7 +63,8 @@ def test_package_imports_no_jax():
                  "scripts.bench_event", "scripts.kernel_ceiling",
                  "scripts.profile_slot", "scripts.episode_campaign",
                  "scripts.ppo_campaign", "scripts.ps_campaign",
-                 "scripts.episode_rate", "utils.plotting"):
+                 "scripts.episode_rate", "utils.plotting",
+                 "scripts.ref_sweep", "scripts.render_results"):
         assert f"diral_tpu_torch.{name}" in res["modules"], name
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert not bad, bad
@@ -167,10 +168,14 @@ def test_entry_points_default_to_cuda():
              os.path.join("build", "tests", "refused.json")],
             cwd=ROOT, capture_output=True, text=True, timeout=120)
         assert out.returncode != 0 and "no CUDA device" in out.stderr, script
-    out = subprocess.run(
-        [sys.executable, "-m", "diral_tpu_torch.scripts.episode_rate",
-         "ps-dqn:1:1"], cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    for argv in (["episode_rate", "ps-dqn:1:1"],
+                 ["ref_sweep", os.path.join("build", "tests", "refused_sweep"),
+                  "--slots", "1"]):
+        out = subprocess.run(
+            [sys.executable, "-m", f"diral_tpu_torch.scripts.{argv[0]}",
+             *argv[1:]], cwd=ROOT, capture_output=True, text=True,
+            timeout=120)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, argv
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.run_experiment(cfg, num_slots=1)
 
