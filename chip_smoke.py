@@ -1179,39 +1179,123 @@ def cli_json(cli, argv):
         return out, None
 
 
-def prr_train_phase(torch, np, here, dev, load_config, runner, zero_counts,
-                    read_counts, failures, slots=550):
+def prr_train_phase(torch, np, here, dev, load_config, runner, ckpt,
+                    evaluate, zero_counts, read_counts, failures, slots=550):
     """(a) The PRR configs through ``train_experiment`` at their published
     widths: congested_6v_5r (design topology, channel step) and
     dynamic_20v_15r (channel step, velocity kicks), ``slots`` slots each
-    (train events at 524 and 549), launch counters around each run."""
+    (train events at 524 and 549), launch counters around each run.  Then
+    dynamic_20v_15r again with K5 and K6 forced on
+    (configs/torch_dynamic_20v_15r_kernels.yaml; N = 20 is below the auto
+    gate): K5 and K6 launched at least once a slot, and sum rewards,
+    losses and actions bit-equal to the auto run's.  K6 multiplies the
+    counts by the reciprocal of the neighbour count where the env's own
+    histogram divides, as JAX's Pallas kernel and its XLA path do; the
+    phase counts the (hits, count) pairs at which the two roundings differ
+    on the card and on the CPU, and names the carry tensors in which the
+    two runs part, with their elements that differ before and after
+    rounding to bfloat16 (the precision at which K1-K3 read the history
+    windows).  Last the feedforward toy (toy_4ue_3r_mlp), which launches
+    none of K1-K4, and its greedy eval on the [T, D] windows: the argmax
+    runs over T * C ids, and the ids >= C (no transmission) are counted."""
     import dataclasses
     import tempfile
 
-    for name in ("congested_6v_5r", "dynamic_20v_15r"):
+    def train(name, need, none=()):
         cfg = load_config(os.path.join(here, "configs", f"{name}.yaml"))
         cfg = dataclasses.replace(cfg, time_slots=slots)
         with tempfile.TemporaryDirectory() as wd:
             zero_counts()
             t0 = time.perf_counter()
-            _, out = runner.train_experiment(cfg, wd, device=dev,
-                                             verbose=False)
+            carry, out = runner.train_experiment(cfg, wd, device=dev,
+                                                 verbose=False)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts(f"train {name} ({slots} slots)")
         losses = out["loss"][out["loss"] != 0]
         events = losses.size
-        need = {"K1": slots, "K2": 2 * events, "K3": 2 * events}
+        need = need(events)
         ok = (events >= 2 and finite(np, out["loss"], out["sum_reward"])
-              and all(counts[k] >= n for k, n in need.items()))
+              and all(counts[k] >= n for k, n in need.items())
+              and all(counts[k] == 0 for k in none))
         log(f"train {name} x {cfg.engine.num_envs} envs: {slots} slots in "
             f"{wall:.2f} s ({slots / wall:.1f} slots/s incl. warmup and "
             f"pretrain), {events} train events, last loss "
             f"{losses[-1] if events else float('nan'):.6g}, mean sum reward "
-            f"{out['sum_reward'].mean():.4f}; launches {counts} (need {need})"
+            f"{out['sum_reward'].mean():.4f}; launches {counts} (need {need}"
+            f"{', none of ' + '/'.join(none) if none else ''})"
             f" {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"train {name}")
+        return carry, out
+
+    def lstm(events):
+        return {"K1": slots, "K2": 2 * events, "K3": 2 * events}
+
+    def parted(x, y, path="carry", out=None):
+        """{path: [elements that differ, of all, differ in bfloat16]}."""
+        out = {} if out is None else out
+        if isinstance(x, dict):
+            for k in x:
+                parted(x[k], y[k], f"{path}.{k}", out)
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                parted(u, v, f"{path}[{i}]", out)
+        elif isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            row = [int((x != y).sum()), x.numel()]
+            if x.is_floating_point():
+                row.append(int((x.bfloat16() != y.bfloat16()).sum()))
+            out[path] = row
+        return out
+
+    train("congested_6v_5r", lstm)
+    auto_carry, auto = train("dynamic_20v_15r", lstm)
+    forced_carry, forced = train(
+        "torch_dynamic_20v_15r_kernels",
+        lambda events: dict(lstm(events), K5=slots, K6=slots))
+    equal = {k: bool(np.array_equal(forced[k], auto[k]))
+             for k in ("sum_reward", "loss", "actions")}
+    log(f"dynamic_20v_15r with K5 + K6 forced against auto: bit-equal "
+        f"{equal} {'ok' if all(equal.values()) else 'FAIL'}")
+    if not all(equal.values()):
+        failures.append("dynamic_20v_15r K5 + K6 forced vs auto")
+    differ = {}
+    for where in (dev, torch.device("cpu")):
+        hits = torch.arange(20, dtype=torch.float32, device=where)[:, None]
+        cnt = torch.arange(1, 20, dtype=torch.float32, device=where)[None]
+        differ[where.type] = int((hits / cnt != hits * torch.reciprocal(
+            cnt)).sum())
+    log(f"hits / count against hits * (1 / count), float32, hits 0-19 x "
+        f"count 1-19: pairs that differ {differ}")
+    split = parted(ckpt.carry_state(auto_carry),
+                   ckpt.carry_state(forced_carry))
+    log(f"dynamic_20v_15r K5 + K6 forced against auto, carry tensors that "
+        f"differ [elements, of, in bfloat16]: {split or 'none'}")
+
+    carry, _ = train("toy_4ue_3r_mlp", lambda events: {},
+                     none=("K1", "K2", "K3", "K4"))
+    cfg = load_config(os.path.join(here, "configs", "toy_4ue_3r_mlp.yaml"))
+    act, seen = evaluate.drqn_act_fn(cfg, carry.learner.params), []
+
+    def recording(*args):
+        actions, actor = act(*args)
+        seen.append(actions)
+        return actions, actor
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, history = evaluate._start(cfg, gen, torch.float32, dev)
+    with torch.inference_mode():
+        metrics = evaluate._rollout_metrics(cfg, recording,
+                                            (state, history, (), gen), 100)
+    ids = torch.stack(seen)
+    C = cfg.env.num_channels
+    ok = (all(math.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["mean_prr"] <= 1.0)
+    log(f"toy_4ue_3r_mlp greedy eval on the [T, D] windows, 100 slots: "
+        f"{metrics}; {int((ids >= C).sum())} of {ids.numel()} ids >= C "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("toy_4ue_3r_mlp window eval")
 
 
 def resume_phase(torch, np, here, dev, load_config, runner, ckpt, cli,
@@ -2343,6 +2427,7 @@ def main() -> int:
     from diral_tpu_torch.ops import lanes_hist as K7
     from diral_tpu_torch.ops import lstm_window as K1
     from diral_tpu_torch.ops import piggy_hist as K6
+    from diral_tpu_torch.scripts import full_run
     from diral_tpu_torch.train import evaluate
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2586,11 +2671,7 @@ def main() -> int:
     from diral_tpu_torch.agents import drqn
     from diral_tpu_torch.train import loop, runner
 
-    train_wrappers = {"K1": K1.lstm_last_flat,
-                      "K2": K1.lstm_last_flat_triple,
-                      "K3": K1.lstm_window_bwd, "K4": K1.lstm_last_flat_dual,
-                      "K5": K5.channel_phase, "K6": K6.piggy_histogram,
-                      "K7": K7.lanes_histogram}
+    train_wrappers = full_run.kernel_wrappers()
 
     def zero_counts():
         for fn in train_wrappers.values():
@@ -2755,8 +2836,8 @@ def main() -> int:
     from diral_tpu_torch.train import cli
 
     mark("phases 1-11")
-    prr_train_phase(torch, np, here, dev, load_config, runner, zero_counts,
-                    read_counts, failures)
+    prr_train_phase(torch, np, here, dev, load_config, runner, ckpt,
+                    evaluate, zero_counts, read_counts, failures)
     mark("(a) PRR configs through train")
     resume_phase(torch, np, here, dev, load_config, runner, ckpt, cli,
                  zero_counts, read_counts, failures)

@@ -263,6 +263,11 @@ _ENV_KEY_MAP = {  # EnvironmentTest YAML key -> EnvConfig field
     "radius": "radius",
     "enable_design_topology": "enable_design_topology",
     "proportional_fair": "proportional_fair",
+    # the port's one addition to the schema: the channel step's
+    # implementation knob, so that a YAML can force K5 below the auto
+    # gate's N >= 32 (configs/torch_dynamic_20v_15r_kernels.yaml; the
+    # histogram's knob, State's ``hist_impl``, is in the schema already)
+    "step_impl": "step_impl",
 }
 
 

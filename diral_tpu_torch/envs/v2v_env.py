@@ -173,6 +173,15 @@ def sample_actions(cfg: EnvConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def one_hot_actions(actions, c: int):
+    """[..., C] int64 one-hot rows of channel ids.  An id outside [0, C)
+    gives a zero row, i.e. no transmission, as ``jax.nn.one_hot`` does in
+    the JAX env: the feedforward DRQN's greedy eval takes its argmax over
+    T * C ids (evaluate.py:115-118)."""
+    return (actions.long()[..., None]
+            == torch.arange(c, device=actions.device)).long()
+
+
 def _eye(n, device):
     return torch.eye(n, dtype=torch.bool, device=device)
 
@@ -286,7 +295,7 @@ def step_collision(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
     n, c = cfg.num_users, cfg.num_channels
     dtype, dev = state.pos_x.dtype, state.pos_x.device
     b = state.pos_x.shape[0]
-    acts = F.one_hot(actions.long(), c)            # [B, N, C]
+    acts = one_hot_actions(actions, c)            # [B, N, C]
     piggy = st.piggybacking
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
@@ -360,7 +369,7 @@ def step_design(cfg: EnvConfig, state: EnvState, actions, t, trace=None):
     n, c = cfg.num_users, cfg.num_channels
     dtype, dev = state.pos_x.dtype, state.pos_x.device
     b = state.pos_x.shape[0]
-    acts = F.one_hot(actions.long(), c)
+    acts = one_hot_actions(actions, c)
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
 
@@ -571,7 +580,7 @@ def obtain_state(cfg: EnvConfig, state: EnvState, obs, actions, rewards,
     parts = []
     if st.add_action:
         if st.action_index == "binary":
-            parts.append(F.one_hot(actions.long(), cfg.num_channels).to(dtype))
+            parts.append(one_hot_actions(actions, cfg.num_channels).to(dtype))
         elif st.action_index == "real":
             parts.append(actions.to(dtype)[..., None])
         else:
@@ -625,7 +634,7 @@ def state_generator(cfg: EnvConfig, actions, obs):
     first-channel observation truncated to int (the ACK).  actions [B, N],
     obs [B, N, C] -> [B, N, 2C+1]."""
     n, c = cfg.num_users, cfg.num_channels
-    onehot = F.one_hot(actions.long(), c).to(obs.dtype)
+    onehot = one_hot_actions(actions, c).to(obs.dtype)
     channel_alloc = obs[:, -1:, :].expand(-1, n, -1)
     ack = torch.trunc(obs[:, :, :1])
     return torch.cat([onehot, channel_alloc, ack], dim=2)

@@ -13,7 +13,10 @@ script's keys (``config``, ``time_slots``, ``train_seconds``,
 ``resumed_from`` (the slot each restart resumed from), ``build_seconds``
 (nvcc, before training), ``init_seconds`` and ``loop_seconds`` (the
 runner's init -- warmup, pretrain, a restore -- and its slot loop;
-``train_seconds`` is their sum).
+``train_seconds`` is their sum) and ``launches``: how often each kernel
+K1-K7 was launched in this start's ``train`` and ``eval`` (the wrappers'
+counters; a start that resumed counts from its restore, all 0 on the
+CPU).
 
 Departures from the JAX script (ROADMAP Queue 3, run-management
 departures); none changes a number of the run:
@@ -91,6 +94,31 @@ def decile_curve(sum_reward) -> list[float]:
     n10 = max(1, len(sr) // 10)
     return [round(float(sr[i * n10:(i + 1) * n10].mean()), 3)
             for i in range(10) if i * n10 < len(sr)]
+
+
+def kernel_wrappers() -> dict:
+    """{K1..K7: the wrapper that launches that kernel}; each wrapper adds
+    one to its ``launches`` where it launches its kernel."""
+    from diral_tpu_torch.ops import (channel_phase, lanes_hist, lstm_window,
+                                     piggy_hist)
+
+    return {"K1": lstm_window.lstm_last_flat,
+            "K2": lstm_window.lstm_last_flat_triple,
+            "K3": lstm_window.lstm_window_bwd,
+            "K4": lstm_window.lstm_last_flat_dual,
+            "K5": channel_phase.channel_phase,
+            "K6": piggy_hist.piggy_histogram,
+            "K7": lanes_hist.lanes_histogram}
+
+
+def launch_counts() -> dict:
+    """The K1-K7 wrappers' launch counters."""
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def _since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
 
 
 def device_info(dev: torch.device) -> dict:
@@ -204,11 +232,14 @@ def run(config, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
     build_s = time.perf_counter() - t0
     float_dtype = _DTYPE[cfg.engine.dtype]
     timing = {}
+    counted = launch_counts()
     t0 = time.perf_counter()
     carry, logs = runner.train_experiment(
         cfg, workdir=workdir, seed=seed, resume=checkpoints,
         dtype=float_dtype, verbose=verbose, device=dev, timing=timing)
     train_s = time.perf_counter() - t0
+    launches = {"train": _since(counted)}
+    counted = launch_counts()
     curve = decile_curve(logs["sum_reward"])
     if verbose:
         print(f"train done in {train_s:.0f}s; curve(deciles)={curve}",
@@ -221,6 +252,7 @@ def run(config, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
     comp = evaluate.compare_drqn_vs_sps(eval_cfg, carry.learner.params, 1,
                                         steps=eval_steps, dtype=float_dtype,
                                         device=dev)
+    launches["eval"] = _since(counted)
     summary = {
         "config": ident["config"],
         "time_slots": cfg.time_slots,
@@ -235,6 +267,7 @@ def run(config, workdir: str, *, seed=0, eval_steps=500, eval_envs=16,
         "build_seconds": round(build_s, 3),
         "init_seconds": round(timing["init_seconds"], 3),
         "loop_seconds": round(timing["loop_seconds"], 3),
+        "launches": launches,
     }
     write_json(os.path.join(workdir, "summary.json"), summary)
     return summary

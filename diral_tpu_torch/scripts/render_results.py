@@ -10,7 +10,10 @@ number beside the JAX package's from the JAX artifact of the same band
 formats and statistics are the JAX script's (its ``_campaign_table``,
 ``_serve_seeds_table``, ``_ppo_seeds_table``, ``_ps_campaign_table``,
 ``_ref_sweep_table``); the JAX package's numbers come from its committed
-artifacts, never from a run of it.
+artifacts, never from a run of it.  The toy at n = 8 and the single runs
+have no JAX table to follow: their verdict lines (the collapse classes,
+SPS PRR, learning) are computed here, and JAX's bf16 toy, which left no
+artifact, is RESULTS.md:79-95's numbers (``JAX_TOY_BF16``).
 
     python -m diral_tpu_torch.scripts.render_results [--check] [--root DIR]
 
@@ -97,6 +100,14 @@ class Tables:
         if self.exists("torch_congested_seeds5.json"):
             tables["congested-seeds"] = lambda: self.campaign(
                 "torch_congested_seeds5.json", "congested_seeds5.json")
+        if self.exists("torch_dynamic_seeds5.json"):
+            tables["dynamic-seeds"] = lambda: self.campaign(
+                "torch_dynamic_seeds5.json", "dynamic_seeds5.json")
+            tables["dynamic-deciles"] = self.dynamic_deciles
+        if self.exists("torch_toy_seeds3to7.json"):
+            tables["toy-seeds-8"] = self.toy_seeds_8
+        if any(self.exists(port) for port, _, _ in SINGLE_RUNS):
+            tables["single-runs"] = self.single_runs
         return tables
 
     # -- DRQN campaigns: the JAX script's _campaign_table ------------------
@@ -151,6 +162,103 @@ class Tables:
         d = self.load(port)
         return self._campaign(d["rows"], self.load(jax)["rows"],
                               d.get("checks"))
+
+    def dynamic_deciles(self) -> str:
+        """Each seed's learning-curve deciles, the port's above JAX's."""
+        jax = {r["seed"]: r for r in self.load("dynamic_seeds5.json")["rows"]}
+        out = ["| seed | run | " + " | ".join(f"d{i}" for i in range(1, 11))
+               + " |", "|---|---|" + "---|" * 10]
+        for r in self.load("torch_dynamic_seeds5.json")["rows"]:
+            for who, row in (("port", r), ("JAX", jax.get(r["seed"]))):
+                if row:
+                    out.append(f"| {r['seed']} | {who} | " + " | ".join(
+                        f"{x:+.2f}" for x in row["reward_curve_deciles"])
+                        + " |")
+        return "\n".join(out)
+
+    # -- the toy at n = 8, with the collapse counts ------------------------
+
+    def toy_seeds_8(self) -> str:
+        """The port's eight toy seeds (torch_toy_seeds3.json and
+        torch_toy_seeds3to7.json), each classed by collapse, beside JAX's
+        8-seed sweep's final reward and class (its ΔPRR is another
+        protocol: ``train-sweep`` evaluates on the config's envs, SPS PRR
+        0.609); the port's ΔPRR against JAX's three standalone toy runs."""
+        rows = (self.load("torch_toy_seeds3.json")["rows"]
+                + self.load("torch_toy_seeds3to7.json")["rows"])
+        sweep = {r["seed"]: r for r in self.load("seed_sweep_8.json")["rows"]}
+        out = ["| seed | final decile sum_r | DRQN PRR | SPS PRR | ΔPRR "
+               "| collapse | slots/s | JAX sweep final sum_r | JAX sweep "
+               "collapse |", "|---|---|---|---|---|---|---|---|---|"]
+        for r in rows:
+            j = sweep.get(r["seed"])
+            jcls = (collapse(j["final_mean_sum_reward"], j["drqn_prr"])
+                    if j else "--")
+            out.append(
+                f"| {r['seed']} | {r['final_decile_sum_reward']:+.2f} "
+                f"| {r['drqn_prr']:.3f} | {r['sps_prr']:.4f} "
+                f"| {_pct(r['prr_improvement'])} "
+                f"| {collapse(r['final_decile_sum_reward'], r['drqn_prr'])} "
+                f"| {r['slots_per_sec']:.0f} "
+                + (f"| {j['final_mean_sum_reward']:+.2f} | {jcls} |" if j
+                   else "| -- | -- |"))
+        port = [collapse(r["final_decile_sum_reward"], r["drqn_prr"])
+                for r in rows]
+        jax = [collapse(r["final_mean_sum_reward"], r["drqn_prr"])
+               for r in sweep.values()]
+        toy = [self.load(n)["compare_vs_sps"]["prr_improvement"]
+               for n in JAX_TOY_RUNS]
+        imp = [r["prr_improvement"] for r in rows]
+        sps = sorted({r["sps_prr"] for r in rows})
+        learned = [r["final_decile_sum_reward"] > r["reward_curve_deciles"][0]
+                   for r in rows]
+        (pm, ps), (jm, js) = _pop_stats(imp), _pop_stats(toy)
+        out += [
+            "",
+            f"- collapses: port {port.count('full')} full and "
+            f"{port.count('partial')} partial of {len(rows)}; JAX's sweep "
+            f"{jax.count('full')} full and {jax.count('partial')} partial "
+            f"of {len(jax)} (full: final decile <= {FULL_COLLAPSE} or eval "
+            f"PRR 1.000; partial: final decile <= {PARTIAL_COLLAPSE})",
+            f"- ΔPRR: port {_pct(pm)} ± {ps:.1%} (n={len(imp)}, population "
+            f"std), JAX's standalone toy runs {_pct(jm)} ± {js:.1%} "
+            f"(n={len(toy)})",
+            f"- SPS PRR {TOY_SPS_PRR} in every row: "
+            f"{_met(sps == [TOY_SPS_PRR])} ({sps})",
+            f"- final decile above the first: {sum(learned)}/{len(learned)} "
+            f"{_met(all(learned))}"]
+        return "\n".join(out)
+
+    # -- the single runs: toy and 100v/50r in bfloat16, the MLP toy --------
+
+    def single_runs(self) -> str:
+        out = ["| run | deciles 1 → 8 | final decile | DRQN PRR | SPS PRR "
+               "| ΔPRR | slots/s | K1-K4 launches (train) "
+               "| JAX deciles 1 → 8 | JAX final decile | JAX DRQN PRR "
+               "| JAX ΔPRR |",
+               "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+        for port, jax, label in SINGLE_RUNS:
+            if not self.exists(port):
+                continue
+            r, j = self.load(port), self._jax_run(jax)
+            c, d = r["compare_vs_sps"], r["reward_curve_deciles"]
+            lstm = sum(r["launches"]["train"][k]
+                       for k in ("K1", "K2", "K3", "K4"))
+            jd = j["reward_curve_deciles"]
+            jfinal = f"{jd[-1]:+.2f}" if len(jd) == 10 else "--"
+            out.append(
+                f"| {label} | {d[0]:+.2f} → {d[7]:+.2f} | {d[-1]:+.2f} "
+                f"| {c['drqn']['mean_prr']:.3f} | {c['sps']['mean_prr']:.3f} "
+                f"| {_pct(c['prr_improvement'])} | {r['slots_per_sec']:.0f} "
+                f"| {lstm} | {jd[0]:+.2f} → {jd[7]:+.2f} | {jfinal} "
+                f"| {j['compare_vs_sps']['drqn']['mean_prr']:.3f} "
+                f"| {_pct(j['compare_vs_sps']['prr_improvement'])} |")
+        return "\n".join(out)
+
+    def _jax_run(self, jax):
+        """A JAX full run: its artifact, or (the bf16 toy, which has
+        none) RESULTS.md's numbers."""
+        return self.load(jax) if isinstance(jax, str) else jax
 
     # -- online serving: _serve_seeds_table ------------------------------
 
@@ -291,6 +399,37 @@ class Tables:
                        f"{_met(c['learning']['met'])}")
         return "\n".join(out)
 
+
+# the toy's collapse classes (RESULTS.md:161-168): a full collapse ends on
+# the all-same-channel equilibrium (sum reward -16, or an eval PRR of 1.000
+# from a fixed assignment); a partial one halfway there
+FULL_COLLAPSE, PARTIAL_COLLAPSE = -15.0, -8.0
+TOY_SPS_PRR = 0.6437   # the port's toy SPS PRR (500 steps x 16 envs, seeded 1)
+JAX_TOY_RUNS = ("toy_full_250k.json", "toy_full_s1.json", "toy_full_s2.json")
+
+
+def collapse(final: float, prr: float) -> str:
+    if final <= FULL_COLLAPSE or prr >= 0.9995:
+        return "full"
+    return "partial" if final <= PARTIAL_COLLAPSE else "none"
+
+
+# JAX's bf16 flagship has no artifact: RESULTS.md:79-95 gives its deciles
+# 1-8 (-4.85 to -1.01) and its eval (PRR 0.684 against SPS's 0.640,
+# +6.8%); the last two deciles collapsed, their values unpublished
+JAX_TOY_BF16 = {"reward_curve_deciles": [-4.85] + [float("nan")] * 6
+                + [-1.01],
+                "compare_vs_sps": {"drqn": {"mean_prr": 0.684},
+                                   "sps": {"mean_prr": 0.640},
+                                   "prr_improvement": 0.068}}
+# (the port's artifact, the JAX artifact or numbers, the row label)
+SINGLE_RUNS = (
+    ("torch_toy_bf16_250k.json", JAX_TOY_BF16, "toy_4ue_3r, bfloat16"),
+    ("torch_scale_bf16_100k.json", "scale_full_100k_bf16.json",
+     "scale_100v_50r, bfloat16"),
+    ("torch_toy_mlp_window_250k.json", "toy_mlp_250k.json",
+     "toy_4ue_3r_mlp"),
+)
 
 _BLOCK = re.compile(
     r"(<!-- begin:table-([a-z0-9-]+) -->)\n.*?(<!-- end:table-\2 -->)",

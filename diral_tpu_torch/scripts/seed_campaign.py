@@ -4,19 +4,21 @@ full_run's protocol, and one JSON artifact with the per-seed rows and the
 distribution the RESULTS.md tables render from.
 
     python -m diral_tpu_torch.scripts.seed_campaign <config.yaml> <out.json>
-        [--seeds 5] [--slots N] [--eval-steps 500] [--eval-envs 16]
-        [--dtype D] [--save-freq N] [--workdir ROOT] [--jobs J]
-        [--device cuda|cpu] [--reference JAX.json]
+        [--seeds 5] [--first-seed 0] [--slots N] [--eval-steps 500]
+        [--eval-envs 16] [--dtype D] [--save-freq N] [--workdir ROOT]
+        [--jobs J] [--device cuda|cpu] [--reference JAX.json]
 
 ``out`` has the JAX artifact's keys (``config``, ``time_slots``,
 ``seeds``, ``eval_steps``, ``eval_envs``, ``cli``, ``rows``,
 ``prr_improvement_mean`` / ``_std`` (ddof 1) / ``_min`` / ``_max``,
 ``n_below_sps``), ``device`` and, with ``--reference``, ``checks``: the
-band checks against that JAX campaign.  Each row has JAX's keys (``seed``,
-``train_seconds``, ``slots_per_sec``, ``final_decile_sum_reward``,
-``reward_curve_deciles``, ``drqn_prr``, ``sps_prr``,
-``prr_improvement``) and ``device``, ``resumed_from``, ``init_seconds``,
-``loop_seconds`` and ``eval_seconds`` from the seed's summary.
+band checks against that JAX campaign.  ``seeds`` is JAX's count, or,
+with ``--first-seed K`` above 0, the list of seeds run (K..K+S-1).  Each
+row has JAX's keys (``seed``, ``train_seconds``, ``slots_per_sec``,
+``final_decile_sum_reward``, ``reward_curve_deciles``, ``drqn_prr``,
+``sps_prr``, ``prr_improvement``) and ``device``, ``resumed_from``,
+``init_seconds``, ``loop_seconds``, ``eval_seconds`` and ``launches``
+from the seed's summary.
 
 A campaign survives being cut, so it can span calls with a time cap
 (departures from the JAX script, ROADMAP Queue 3; none changes a number):
@@ -39,6 +41,9 @@ A campaign survives being cut, so it can span calls with a time cap
   own on the same device; each has its own generator, so a seed's row is
   the one it has alone.
 * ``--device cuda|cpu`` takes the place of ``--cpu``, as in full_run.
+* ``--first-seed K`` runs seeds K..K+S-1 (JAX's script runs 0..S-1), so
+  that more seeds of a committed campaign go to a new artifact; a seed's
+  row is the one it has in any campaign.
 
 A campaign that outlasts one machine session runs under a ``timeout``
 below the session's cap with ``--workdir`` on storage the next session
@@ -61,7 +66,8 @@ from diral_tpu_torch.scripts import episode_campaign, full_run
 
 # a row's fields that say how and where its seed ran, not what it learned
 RUN_FIELDS = ("train_seconds", "slots_per_sec", "init_seconds",
-              "loop_seconds", "eval_seconds", "device", "resumed_from")
+              "loop_seconds", "eval_seconds", "device", "resumed_from",
+              "launches")
 
 
 def seed_row(seed: int, summary: dict) -> dict:
@@ -82,6 +88,10 @@ def seed_row(seed: int, summary: dict) -> dict:
     row.update({k: summary[k] for k in ("device", "resumed_from",
                                         "init_seconds", "loop_seconds",
                                         "eval_seconds")})
+    # summaries written before launches were counted lack them, e.g.
+    # results/torch_toy_seed0.json, which ref_sweep's flagship check reads
+    if "launches" in summary:
+        row["launches"] = summary["launches"]
     return row
 
 
@@ -131,10 +141,10 @@ def checks(rows, reference) -> dict:
     }
 
 
-def run_campaign(config: str, out: str, *, seeds=5, slots=None,
-                 eval_steps=500, eval_envs=16, dtype=None, save_freq=None,
-                 workdir=None, jobs=1, device=None, reference=None,
-                 cli=None) -> dict:
+def run_campaign(config: str, out: str, *, seeds=5, first_seed=0,
+                 slots=None, eval_steps=500, eval_envs=16, dtype=None,
+                 save_freq=None, workdir=None, jobs=1, device=None,
+                 reference=None, cli=None) -> dict:
     """Run (or finish) the campaign and write ``out``; returns its
     summary."""
     dev = resolve_device(device)
@@ -143,15 +153,16 @@ def run_campaign(config: str, out: str, *, seeds=5, slots=None,
         config=config, workdir=os.path.join(root, f"seed{k}"), slots=slots,
         seed=k, eval_steps=eval_steps, eval_envs=eval_envs, dtype=dtype,
         save_freq=save_freq, device=dev.type, campaign=True, verbose=False)
-        for k in range(seeds)}
+        for k in range(first_seed, first_seed + seeds)}
     summaries = episode_campaign.run_seeds(tasks, full_run.run, run_ident,
                                            jobs)
-    rows = [seed_row(k, s) for k, s in enumerate(summaries)]
+    rows = [seed_row(first_seed + i, s) for i, s in enumerate(summaries)]
     first = summaries[0]
     summary = {
         "config": config,
         "time_slots": first["time_slots"],
-        "seeds": seeds,
+        "seeds": (list(range(first_seed, first_seed + seeds)) if first_seed
+                  else seeds),
         "eval_steps": eval_steps,
         "eval_envs": eval_envs,
         "cli": cli or (f"python -m diral_tpu_torch.scripts.seed_campaign "
@@ -174,11 +185,13 @@ def run_campaign(config: str, out: str, *, seeds=5, slots=None,
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m diral_tpu_torch.scripts.seed_campaign",
-        description="Full-schedule runs of one config over seeds 0..S-1, "
+        description="Full-schedule runs of one config over seeds K..K+S-1, "
                     "each evaluated against SPS; writes one JSON artifact.")
     p.add_argument("config")
     p.add_argument("out")
     p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--first-seed", type=int, default=0,
+                   help="run seeds K..K+S-1 (default 0)")
     p.add_argument("--slots", type=int, default=None)
     p.add_argument("--eval-steps", type=int, default=500)
     p.add_argument("--eval-envs", type=int, default=16)
@@ -205,6 +218,7 @@ def main(argv=None) -> dict:
     cli = ("python -m diral_tpu_torch.scripts.seed_campaign "
            + " ".join(map(shlex.quote, argv)))
     return run_campaign(args.config, args.out, seeds=args.seeds,
+                        first_seed=args.first_seed,
                         slots=args.slots, eval_steps=args.eval_steps,
                         eval_envs=args.eval_envs, dtype=args.dtype,
                         save_freq=args.save_freq, workdir=args.workdir,

@@ -20,7 +20,6 @@ missing GPU raises (device.resolve_device).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from diral_tpu_torch.agents import policies as pol
 from diral_tpu_torch.agents.sps import sps_init, sps_step, toy_rssi
@@ -52,13 +51,15 @@ def prr_per_user(cfg: EnvConfig, state: E.EnvState, actions):
 
     inf = torch.full((), torch.inf, dtype=D.dtype, device=D.device)
     dist_tr = torch.where(~eye & (D < R), D, inf)                 # [B, tx, rx]
-    on_ch = F.one_hot(actions, c).bool().transpose(1, 2)          # [B, C, tx]
-    m = torch.where(on_ch[..., None], dist_tr[:, None], inf)      # [B, C, tx, rx]
+    on_ch = E.one_hot_actions(actions, c).bool().transpose(1, 2)  # [B, C, tx]
+    m = torch.where(on_ch[..., None], dist_tr[:, None], inf)  # [B, C, tx, rx]
     near_tx = m.argmin(dim=2)                                     # [B, C, rx]
     has = torch.isfinite(m.amin(dim=2))
-    own = actions[:, :, None].expand(-1, -1, n)                   # [B, tx, rx]
+    # an id outside [0, C) is on no channel and decodes nowhere
+    on_any = ((actions >= 0) & (actions < c))[:, :, None]         # [B, tx, 1]
+    own = actions.clamp(0, c - 1)[:, :, None].expand(-1, -1, n)   # [B, tx, rx]
     near_own = torch.gather(near_tx, 1, own)
-    has_own = torch.gather(has, 1, own)
+    has_own = torch.gather(has, 1, own) & on_any
     ids = torch.arange(n, device=D.device)
     credit = (near_own == ids[None, :, None]) & has_own
     received = (credit & audience).sum(dim=2).to(D.dtype)
@@ -86,8 +87,10 @@ def _rollout_metrics(cfg: ExperimentConfig, act_fn, carry_init, steps: int):
         history = torch.cat([history[:, 1:], sv[:, None].to(history.dtype)],
                             dim=1)
         sum_r = rew.sum(dim=1)
-        counts = F.one_hot(actions.long(), c).sum(dim=1)          # [B, C]
-        colliding = torch.gather(counts > 1, 1, actions.long()).sum(dim=1)
+        # JAX's bincount drops ids >= C and its gather clamps them to C-1
+        counts = E.one_hot_actions(actions, c).sum(dim=1)        # [B, C]
+        colliding = torch.gather(counts > 1, 1,
+                                 actions.long().clamp(0, c - 1)).sum(dim=1)
         logs.append(torch.stack([prr.mean(), sum_r.mean(),
                                  (c - sum_r).mean(),
                                  colliding.to(sum_r.dtype).mean()]))
@@ -111,7 +114,10 @@ def _generator(seed: int, device) -> torch.Generator:
 
 def drqn_act_fn(cfg: ExperimentConfig, params):
     """The greedy DRQN actor (evaluate.py:115-118): one Q-forward for all
-    B*N agents over their [T, D] history windows."""
+    B*N agents over their [T, D] history windows.  The feedforward flavor
+    (``use_lstm_input: False``) maps each of the T steps to C Q-values, so
+    the argmax runs over T * C ids; an id >= C is no transmission in the
+    env and in the metrics (``one_hot_actions``), as in the JAX package."""
     acfg = cfg.agent
 
     def act(actor, env_state, history, gen, t):

@@ -38,9 +38,9 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 SLOTS = 100
 EVAL = ["--eval-steps", "10", "--eval-envs", "2", "--device", "cpu"]
 ADDED_SUMMARY = {"device", "resumed_from", "build_seconds", "init_seconds",
-                 "loop_seconds"}
+                 "loop_seconds", "launches"}
 ADDED_ROW = {"device", "resumed_from", "init_seconds", "loop_seconds",
-             "eval_seconds"}
+             "eval_seconds", "launches"}
 
 
 @pytest.fixture(scope="module")

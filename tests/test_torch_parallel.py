@@ -332,9 +332,11 @@ def test_masked_gather_plus_sum_is_the_unsharded_gather(monkeypatch):
             assert torch.equal(got[k], rows[k]), k
 
 
+# torch_*.yaml are the port's own copies of a published config, which the
+# JAX package's loader refuses (tests/test_torch_dynamic_kernels_config.py)
 @pytest.mark.parametrize("name", sorted(
     f for f in os.listdir(os.path.join(ROOT, "configs"))
-    if f.endswith(".yaml")))
+    if f.endswith(".yaml") and not f.startswith("torch_")))
 def test_sampler_collective_bytes_equal_jax(name):
     path = os.path.join(ROOT, "configs", name)
     for dtype_bytes in (4, 2):

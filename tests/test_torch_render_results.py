@@ -7,6 +7,9 @@
   changed there changes the table, and the table shows it.
 * The formulas are the JAX script's: its ``_campaign_table`` and
   ``_ppo_seeds_table`` statistics on the same rows.
+* The dynamic band, the toy at n = 8 with its collapse classes and the
+  three single runs render from stand-in port artifacts beside the JAX
+  artifacts of the same runs.
 """
 
 import importlib.util
@@ -37,6 +40,10 @@ JAX_SOURCES = {
     "ref-sweep": ("ref_sweep.json", [4, "prr_improvement"], "{:+.1%}"),
     "congested-seeds": ("congested_seeds5.json",
                         ["rows", 1, "prr_improvement"], "{:+.1%}"),
+    "dynamic-seeds": ("dynamic_seeds5.json", ["rows", 3, "prr_improvement"],
+                      "{:+.1%}"),
+    "single-runs": ("toy_mlp_250k.json", ["compare_vs_sps",
+                                          "prr_improvement"], "{:+.1%}"),
 }
 
 
@@ -127,3 +134,85 @@ def test_formulas_are_the_jax_scripts(tree):
     port_line = next(line for line in mine["ppo-seeds"]().splitlines()
                      if line.startswith("| **port"))
     assert jax_line.split("**")[3] == port_line.split("**")[3]
+
+
+NEW_TABLES = ("dynamic-seeds", "dynamic-deciles", "toy-seeds-8", "single-runs")
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+
+
+def _stand_ins(root):
+    """Port artifacts for the new tables, made from committed ones: the
+    dynamic rows are JAX's with ΔPRR + 0.01; toy seeds 3-7 are the port's
+    seeds 0-2 and two more, seed 4 a full and seed 6 a partial collapse;
+    the single runs are JAX's full runs with the port's launch counts."""
+    res = root / "results"
+
+    def load(name):
+        return json.loads((res / name).read_text())
+
+    dyn = load("dynamic_seeds5.json")
+    for r in dyn["rows"]:
+        r["prr_improvement"] = round(r["prr_improvement"] + 0.01, 4)
+    (res / "torch_dynamic_seeds5.json").write_text(json.dumps(dyn))
+    base = load("torch_toy_seeds3.json")["rows"]
+    rows = []
+    for seed in range(3, 8):
+        r = dict(base[seed % 3], seed=seed)
+        if seed == 4:
+            r.update(final_decile_sum_reward=-16.0, drqn_prr=1.0)
+        if seed == 6:
+            r.update(final_decile_sum_reward=-8.5)
+        rows.append(r)
+    (res / "torch_toy_seeds3to7.json").write_text(json.dumps(
+        {"seeds": list(range(3, 8)), "rows": rows}))
+    for port, jax in (("torch_scale_bf16_100k.json",
+                       "scale_full_100k_bf16.json"),
+                      ("torch_toy_mlp_window_250k.json",
+                       "toy_mlp_250k.json"),
+                      ("torch_toy_bf16_250k.json", "toy_full_250k.json")):
+        run = load(jax)
+        lstm = 0 if "mlp" in port else 1000
+        run["launches"] = {"train": dict(LAUNCHES, K1=lstm),
+                           "eval": dict(LAUNCHES)}
+        (res / port).write_text(json.dumps(run))
+    md = root / rr.RESULTS_MD
+    text = md.read_text()
+    for name in NEW_TABLES:
+        if f"<!-- begin:table-{name} -->" not in text:
+            text += (f"\n<!-- begin:table-{name} -->\n"
+                     f"<!-- end:table-{name} -->\n")
+    md.write_text(text)
+
+
+def test_new_tables_render(tree):
+    _stand_ins(tree)
+    assert set(NEW_TABLES) <= set(rr.Tables(str(tree)).registry())
+    assert rr.main(["--root", str(tree)]) == 0
+    text = (tree / rr.RESULTS_MD).read_text()
+    dyn = _table(text, "dynamic-seeds")
+    assert "| 0 | +1.42 | 0.748 | 0.523 | +43.9% | 1572 | +42.9% |" in dyn
+    assert "0/5 below SPS" in dyn
+    deciles = _table(text, "dynamic-deciles")
+    assert deciles.count("| port |") == deciles.count("| JAX |") == 5
+    assert "| 0 | JAX | -0.44 | -1.57 |" in deciles
+    toy = _table(text, "toy-seeds-8")
+    assert toy.count("| full |") == 2      # port seed 4, JAX sweep seed 6
+    assert ("- collapses: port 1 full and 1 partial of 8; JAX's sweep 1 "
+            "full and 2 partial of 8") in toy
+    assert "SPS PRR 0.6437 in every row: **met**" in toy
+    assert "(n=8, population std)" in toy and "(n=3)" in toy
+    single = _table(text, "single-runs")
+    mlp = next(line for line in single.splitlines()
+               if line.startswith("| toy_4ue_3r_mlp"))
+    assert "| 0 |" in mlp and mlp.endswith("| -16.00 | 0.474 | -26.2% |")
+    bf16 = next(line for line in single.splitlines()
+                if line.startswith("| toy_4ue_3r, bfloat16"))
+    # JAX's bf16 toy has no artifact: RESULTS.md's deciles 1-8 and eval
+    assert bf16.endswith("| -4.85 → -1.01 | -- | 0.684 | +6.8% |")
+    assert rr.main(["--check", "--root", str(tree)]) == 0
+
+
+def test_collapse_classes():
+    assert rr.collapse(-16.0, 0.6) == rr.collapse(-1.0, 1.0) == "full"
+    assert rr.collapse(-8.4, 0.65) == "partial"
+    assert rr.collapse(-7.9, 0.7) == "none"
