@@ -2182,16 +2182,16 @@ def parallel_phase(torch, np, here, card, zero_counts, read_counts,
     from diral_tpu_torch.scripts import width_report
     from diral_tpu_torch.train import checkpoint as ckpt
     from diral_tpu_torch.train import cli
-    from diral_tpu_torch.train.loop import sampler_collective_bytes
+    from diral_tpu_torch.train.loop import sampler_collective_bytes, \
+        train_events
+    from chip_mesh import same
 
     yaml_path = os.path.join(here, "configs", "scale_100v_50r.yaml")
     cfg = load_config(yaml_path)
     cfg = dataclasses.replace(cfg, time_slots=slots, engine=dataclasses.replace(
         cfg.engine, num_envs=envs))
     coll = sampler_collective_bytes(cfg)
-    I, batch = cfg.episode_interval, cfg.agent.batch_size
-    events = sum(1 for t in range(slots)
-                 if t % I == I - 1 and t > batch + 10)
+    events = train_events(cfg, 0, slots)
     name = cfg.experiment_name
     base = ["train", yaml_path, "--num-envs", str(envs), "--slots",
             str(slots), "--resume", *extra]
@@ -2298,17 +2298,6 @@ def parallel_phase(torch, np, here, card, zero_counts, read_counts,
         return {"ok": ok, "wall": wall, "counts": counts, "wd": wd,
                 "step": step, "collectives": collectives,
                 "save_bytes": max(save_bytes, default=None)}
-
-    def same(a, b):
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
-        if isinstance(a, (list, tuple)):
-            return len(a) == len(b) and all(map(same, a, b))
-        if isinstance(a, torch.Tensor):
-            # torch.equal: the all-reduce may turn a -0.0 into +0.0
-            return (a.dtype == b.dtype and a.shape == b.shape
-                    and torch.equal(a, b))
-        return a == b
 
     def results(r):
         res = os.path.join(r["wd"], "save_results", "test", name)

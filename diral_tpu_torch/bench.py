@@ -54,6 +54,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -797,9 +798,11 @@ def scaling_config(num_envs: int):
         engine=dataclasses.replace(cfg.engine, num_envs=num_envs))
 
 
-def _scaling_rank(rank, n, port, per_device_envs, chunk, device, out):
+def _scaling_rank(rank, n, port, per_device_envs, chunk, device, out,
+                  repeats=1):
     """One rank of ``bench_scaling``'s n-rank run: a warm chunk from slot
-    ``batch_size + 100``, then the timed one; rank 0 puts the seconds."""
+    ``batch_size + 100``, then ``repeats`` timed ones; rank 0 puts the
+    seconds of each."""
     from diral_tpu_torch.parallel import distributed
     from diral_tpu_torch.parallel.mesh import make_mesh
     from diral_tpu_torch.train.loop import make_train_functions
@@ -816,12 +819,16 @@ def _scaling_rank(rank, n, port, per_device_envs, chunk, device, out):
         for carry, _, _ in run_chunks(fns, carry, draws, t0, t0 + chunk,
                                       chunk, torch.float32):
             pass
-        start = time.perf_counter()
-        for carry, _, _ in run_chunks(fns, carry, draws, t0 + chunk,
-                                      t0 + 2 * chunk, chunk, torch.float32):
-            pass
+        times = []
+        for i in range(1, repeats + 1):
+            start = time.perf_counter()
+            for carry, _, _ in run_chunks(fns, carry, draws, t0 + i * chunk,
+                                          t0 + (i + 1) * chunk, chunk,
+                                          torch.float32):
+                pass
+            times.append(time.perf_counter() - start)
         if rank == 0:
-            out.put(time.perf_counter() - start)
+            out.put(times)
     finally:
         distributed.shutdown()
 
@@ -835,12 +842,15 @@ def _free_port() -> int:
 
 
 def bench_scaling(per_device_envs: int = 1024, chunk: int = 64,
-                  devices: int | None = None, device=None) -> dict:
+                  devices: int | None = None, device=None,
+                  repeats: int = 1, samples: dict | None = None) -> dict:
     """Weak-scaling sweep over device counts (stderr), bench.py:658: for
     n = 1, 2, 4, ... <= ``devices`` (default: the visible cards) launch n
     ranks over a data mesh, ``per_device_envs`` envs each; efficiency =
-    rate(n) / (n * rate(1)).  Returns {n: env-slots/s}.  The BASELINE
-    target is >= 80% at n >= 2 hosts."""
+    rate(n) / (n * rate(1)).  Returns {n: env-slots/s}, the median of
+    ``repeats`` consecutive timed chunks; ``samples``, when given,
+    receives {n: [env-slots/s of each chunk]}.  The BASELINE target is
+    >= 80% at n >= 2 hosts."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(device)
@@ -855,9 +865,12 @@ def bench_scaling(per_device_envs: int = 1024, chunk: int = 64,
     for n in counts:
         out = ctx.SimpleQueue()
         mp.start_processes(_scaling_rank, args=(
-            n, _free_port(), per_device_envs, chunk, str(dev), out),
-            nprocs=n, start_method="spawn")
-        rates[n] = per_device_envs * n * chunk / out.get()
+            n, _free_port(), per_device_envs, chunk, str(dev), out,
+            repeats), nprocs=n, start_method="spawn")
+        got = [per_device_envs * n * chunk / s for s in out.get()]
+        if samples is not None:
+            samples[n] = got
+        rates[n] = statistics.median(got)
         eff = rates[n] / (n * rates[1])
         log(f"scaling n={n}: {rates[n]:,.0f} env-slots/s "
             f"(efficiency {eff:.0%})")

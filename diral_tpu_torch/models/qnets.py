@@ -22,6 +22,7 @@ name for name (convert.py).  The functions take the nested-dict view
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -57,6 +58,35 @@ def layer_norm_init(dim, dtype=torch.float32, device=None):
 
 def dense(params, x):
     return x @ params["w"] + params["b"]
+
+
+# the most rows of one product in the acting forward (``rows`` of
+# ``drqn_apply``): cuBLAS picks its algorithm, split-K among them, from the
+# row count, so a row's bits would depend on how many envs a mesh rank
+# holds; products of one fixed shape give every row the same bits on one
+# card and on any mesh (chip_mesh.py's row_invariance)
+ACT_ROWS = 8192
+
+
+def dense_rows(params, x, rows: int):
+    """``dense`` of a 2-D ``x`` as products of exactly ``rows`` rows, the
+    last one padded with zero rows, so that each row's result does not
+    depend on x's row count; one plain ``dense`` when x has ``rows``
+    rows.  Forward only (the products write into one output)."""
+    n = x.shape[0]
+    if n == rows:
+        return dense(params, x)
+    w = params["w"]
+    out = torch.empty((n, w.shape[1]), dtype=torch.result_type(x, w),
+                      device=x.device)
+    full = n - n % rows
+    for a in range(0, full, rows):
+        torch.matmul(x[a:a + rows], w, out=out[a:a + rows])
+    if full < n:
+        tail = x.new_zeros((rows, x.shape[1]))
+        tail[:n - full] = x[full:]
+        out[full:] = (tail @ w)[:n - full]
+    return out + params["b"]
 
 
 def layer_norm(params, x, eps=1e-6):
@@ -171,12 +201,13 @@ def _norm(ln, hh, bf16: bool):
     return layer_norm(ln, hh)
 
 
-def _head_stack(params, h, cfg: AgentConfig, bf16: bool):
-    """The post-feature dense/LN/head tail of the DRQN net."""
-    h = _norm(params["ln2"], torch.relu(dense(params["fc2"], h)), bf16)
+def _head_stack(params, h, cfg: AgentConfig, bf16: bool, lin=dense):
+    """The post-feature dense/LN/head tail of the DRQN net; ``lin`` is
+    the dense layer."""
+    h = _norm(params["ln2"], torch.relu(lin(params["fc2"], h)), bf16)
     if "fc3" in params:
-        h = _norm(params["ln3"], torch.relu(dense(params["fc3"], h)), bf16)
-    out = dense(params["head"], h)
+        h = _norm(params["ln3"], torch.relu(lin(params["fc3"], h)), bf16)
+    out = lin(params["head"], h)
     return out.to(torch.float32) if bf16 else out
 
 
@@ -184,16 +215,20 @@ def _tree(params):
     return params.tree() if isinstance(params, ParamTree) else params
 
 
-def drqn_apply(params, x, cfg: AgentConfig):
+def drqn_apply(params, x, cfg: AgentConfig, rows: int | None = None):
     """x: [B, T, D] or flat [B, T*Dp] window (LSTM path) or [B, D] (MLP
-    path) -> Q [B, A].  ``params``: a DRQN module or its ``tree()``."""
+    path) -> Q [B, A].  ``params``: a DRQN module or its ``tree()``.
+    ``rows``: the dense layers as ``dense_rows`` products of that many
+    rows (forward only), else one product each."""
     params, x, bf16 = _maybe_bf16(_tree(params), x, cfg)
+    lin = dense if rows is None else functools.partial(dense_rows,
+                                                       rows=rows)
     if cfg.network.use_lstm_input:
         h = _lstm_last(params["lstm"], x, cfg.network.lstm_impl,
                        cfg.step_size)
     else:
-        h = _norm(params["ln1"], torch.relu(dense(params["fc1"], x)), bf16)
-    return _head_stack(params, h, cfg, bf16)
+        h = _norm(params["ln1"], torch.relu(lin(params["fc1"], x)), bf16)
+    return _head_stack(params, h, cfg, bf16, lin)
 
 
 def _kernel_gate(cfg: AgentConfig, x, hidden: int) -> bool:

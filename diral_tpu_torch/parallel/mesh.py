@@ -189,15 +189,21 @@ def gather_to_primary(x: torch.Tensor, mesh: Mesh,
     D = mesh.data
     flat = x.reshape(-1)
     whole = None if out is None else out.view(D, -1)
-    step = max(1, SAVE_CHUNK_BYTES // (D * x.element_size()))
+    step = max(1, min(flat.numel(),
+                      SAVE_CHUNK_BYTES // (D * x.element_size())))
+    # rank 0's receive buffers, made once: a list made anew each step
+    # would hold the last step's pieces too while it forms (2 steps)
+    bufs = None if whole is None else torch.empty(
+        (D, step), dtype=x.dtype,
+        device=torch.device("cpu") if mesh.staged else x.device)
     for a in range(0, flat.numel(), step):
         y = _issue("gather", mesh, flat[a:a + step])
-        parts = ([torch.empty_like(y) for _ in range(D)]
-                 if whole is not None else None)
-        dist.gather(y, parts, dst=0, group=mesh.data_group)
+        n = y.numel()
+        dist.gather(y, None if bufs is None else list(bufs[:, :n].unbind(0)),
+                    dst=0, group=mesh.data_group)
         if whole is not None:
-            for r, p in enumerate(parts):
-                whole[r, a:a + p.numel()].copy_(p)
+            for r in range(D):
+                whole[r, a:a + n].copy_(bufs[r, :n])
 
 
 # ---------------------------------------------------------------------------

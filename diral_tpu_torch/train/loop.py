@@ -204,6 +204,18 @@ def sampler_collective_bytes(cfg: ExperimentConfig, dtype_bytes: int = 4):
     }
 
 
+def is_train_event(cfg: ExperimentConfig, t: int) -> bool:
+    """Whether slot ``t`` trains under the ``train_after_episode`` cadence:
+    the last slot of an episode, once the replay can fill a batch."""
+    I = cfg.episode_interval
+    return t % I == I - 1 and t > cfg.agent.batch_size + 10
+
+
+def train_events(cfg: ExperimentConfig, start: int, end: int) -> int:
+    """The train events among slots [start, end) (``is_train_event``)."""
+    return sum(is_train_event(cfg, t) for t in range(start, end))
+
+
 def _gather_flat_windows(replay: FusedWindowReplay, scores, batch: int,
                          step: int, mesh=None):
     """``n`` independent uniform window draws across the env axis: flatten
@@ -357,14 +369,18 @@ class TrainFunctions:
 
     def qvalues(self, learner: drqn.DRQNLearner, history):
         """history [B, N, T*Dp] -> Q [B, N, A]: one forward for all agents
-        of all envs."""
+        of all envs.  Its dense layers are products of the rows one card
+        would hold (at most ``qnets.ACT_ROWS``), so that a mesh rank's
+        rows get the bits one card gives them; a run without a mesh and
+        with at most that many rows keeps one product a layer."""
         B, N, T, Dp, D = self.B, self.N, self.T, self.Dp, self.D
         if self.cfg.agent.network.use_lstm_input:
             x = history.reshape(B * N, T * Dp)
         else:
             x = history[..., (T - 1) * Dp:(T - 1) * Dp + D].reshape(B * N, D)
-        return qnets.drqn_apply(learner.params, x,
-                                self.cfg.agent).reshape(B, N, -1)
+        rows = min(qnets.ACT_ROWS, self.B_global * N)
+        return qnets.drqn_apply(learner.params, x, self.cfg.agent,
+                                rows).reshape(B, N, -1)
 
     def history_push(self, history, nxt):
         """Drop the oldest Dp lanes, append the new state padded to Dp."""
@@ -376,8 +392,7 @@ class TrainFunctions:
         if not cfg.training:
             return False
         if cfg.train_after_episode:
-            return (t % cfg.episode_interval == cfg.episode_interval - 1
-                    and t > cfg.agent.batch_size + 10)
+            return is_train_event(cfg, t)
         # per-slot cadence gated on buffer fill (loop.py:634-640)
         enough = ((replay.count - self.window) * self.B_global
                   >= cfg.agent.batch_size)

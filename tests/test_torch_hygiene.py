@@ -74,7 +74,7 @@ def test_package_imports_no_jax():
 
 
 @pytest.mark.parametrize("path", [
-    "chip_smoke.py", "chip_ab.py",
+    "chip_smoke.py", "chip_ab.py", "chip_mesh.py",
     *sorted(os.path.relpath(os.path.join(d, f), ROOT)
             for d, _, fs in os.walk(os.path.join(ROOT, "diral_tpu_torch"))
             for f in fs if f.endswith(".py"))])
