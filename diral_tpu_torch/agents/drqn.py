@@ -27,6 +27,7 @@ import torch
 
 from diral_tpu_torch.config import AgentConfig
 from diral_tpu_torch.models import qnets
+from diral_tpu_torch.utils import spans
 
 
 @dataclass
@@ -151,16 +152,22 @@ def train(learner: DRQNLearner, rows: dict, time_step: int,
     (time_step + 1) % target_update == 0.  Returns the last step's loss."""
     loss = None
     for k in range(cfg.n_batch):
-        a, r = rows["actions"][k], rows["rewards"][k]
-        if "windows" in rows:
-            loss = train_on_windows(learner, rows["windows"][k], a, r, cfg)
-            continue
-        s, ns = rows["states"][k], rows["next_states"][k]
-        if not cfg.network.use_lstm_input:
-            # rows carry one padded flat step; the MLP consumes [NB, D]
-            D = learner.params.fc1.w.shape[0]
-            s, ns, a, r = s[:, :D], ns[:, :D], a[:, -1], r[:, -1]
-        loss = train_on_packed(learner, s, a, r, ns, cfg)
+        with spans.span("learner.step"):
+            loss = _train_step(learner, rows, k, cfg)
     if (time_step + 1) % cfg.target_update == 0:
-        sync_target(learner)
+        with spans.span("learner.sync"):
+            sync_target(learner)
     return loss
+
+
+def _train_step(learner: DRQNLearner, rows: dict, k: int, cfg: AgentConfig):
+    """Gradient step ``k`` of ``train`` on its pre-drawn rows."""
+    a, r = rows["actions"][k], rows["rewards"][k]
+    if "windows" in rows:
+        return train_on_windows(learner, rows["windows"][k], a, r, cfg)
+    s, ns = rows["states"][k], rows["next_states"][k]
+    if not cfg.network.use_lstm_input:
+        # rows carry one padded flat step; the MLP consumes [NB, D]
+        D = learner.params.fc1.w.shape[0]
+        s, ns, a, r = s[:, :D], ns[:, :D], a[:, -1], r[:, -1]
+    return train_on_packed(learner, s, a, r, ns, cfg)

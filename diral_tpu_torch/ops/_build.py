@@ -32,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from diral_tpu_torch.utils import spans
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "diral_tpu_torch"
@@ -70,6 +72,11 @@ def build_all(names=None) -> dict[str, str]:
     todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return {}
+    with spans.once("setup.kernels", sources=len(todo)):
+        return _compile(todo)
+
+
+def _compile(todo: list) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}

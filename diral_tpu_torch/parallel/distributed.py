@@ -36,6 +36,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from diral_tpu_torch.utils import spans
+
 
 @dataclass(frozen=True)
 class Runtime:
@@ -114,20 +116,23 @@ def initialize(coordinator_address: str | None = None,
         if (_RUNTIME.world, _RUNTIME.rank) != (num_processes, process_id):
             raise RuntimeError("this process already joined another group")
         return _RUNTIME.device
-    host, _, port = coordinator_address.rpartition(":")
-    store = dist.TCPStore(host, int(port), num_processes, process_id == 0,
-                          timeout=timedelta(seconds=300))
-    ranks = _exchange_hosts(store, num_processes, process_id, dev.type)
-    backend = choose_backend(dev.type, ranks)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", local_index(ranks, process_id)
-                           % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
-    staged = backend == "gloo" and dev.type == "cuda"
-    kw = {"device_id": dev} if backend == "nccl" else {}
-    # the rendezvous at tcp://HOST:PORT, through the store made above
-    dist.init_process_group(backend, store=store, world_size=num_processes,
-                            rank=process_id, **kw)
+    with spans.once("setup.process_group", world=num_processes):
+        host, _, port = coordinator_address.rpartition(":")
+        store = dist.TCPStore(host, int(port), num_processes,
+                              process_id == 0,
+                              timeout=timedelta(seconds=300))
+        ranks = _exchange_hosts(store, num_processes, process_id, dev.type)
+        backend = choose_backend(dev.type, ranks)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local_index(ranks, process_id)
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        staged = backend == "gloo" and dev.type == "cuda"
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        # the rendezvous at tcp://HOST:PORT, through the store made above
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id,
+                                **kw)
     _RUNTIME = Runtime(backend, num_processes, process_id, dev, staged)
     how = {"nccl": "one card per rank",
            "gloo": ("ranks share a card; collectives staged through host "

@@ -25,7 +25,8 @@ data column.  A collective over a group of one is skipped.
 
 ``COLLECTIVES``: set it to a list and every collective the process then
 issues is noted there (op, axis, element count, bytes); None (the
-default) notes nothing.
+default) notes nothing.  The all-reduce and the all-gather also open a
+``parallel.<op>`` span (utils/spans.py) with the op and its bytes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from diral_tpu_torch.parallel import distributed
+from diral_tpu_torch.utils import spans
 
 # None, or a list that receives {"op", "axis", "numel", "bytes"} for every
 # collective this process issues
@@ -153,9 +155,11 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     one)."""
     if _trivial(mesh):
         return x
-    y = _issue("all_reduce", mesh, x)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.data_group)
-    return y.to(x.device)
+    with spans.span("parallel.all_reduce", op="all_reduce",
+                    bytes=x.numel() * x.element_size()):
+        y = _issue("all_reduce", mesh, x)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        return y.to(x.device)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
@@ -163,10 +167,12 @@ def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     member."""
     if _trivial(mesh):
         return x
-    y = _issue("all_gather", mesh, x)
-    parts = [torch.empty_like(y) for _ in range(mesh.data)]
-    dist.all_gather(parts, y, group=mesh.data_group)
-    return torch.cat(parts, dim).to(x.device)
+    with spans.span("parallel.all_gather", op="all_gather",
+                    bytes=x.numel() * x.element_size()):
+        y = _issue("all_gather", mesh, x)
+        parts = [torch.empty_like(y) for _ in range(mesh.data)]
+        dist.all_gather(parts, y, group=mesh.data_group)
+        return torch.cat(parts, dim).to(x.device)
 
 
 def barrier(mesh: Mesh) -> None:

@@ -64,6 +64,7 @@ from diral_tpu_torch.envs import v2v_env as E
 from diral_tpu_torch.models import qnets
 from diral_tpu_torch.ops.lstm_window import padded_dim
 from diral_tpu_torch.parallel import mesh as pmesh
+from diral_tpu_torch.utils import spans
 
 
 # ---------------------------------------------------------------------------
@@ -400,11 +401,12 @@ class TrainFunctions:
 
     def train_call(self, learner, replay, t: int, draws: Draws):
         acfg = self.cfg.agent
-        scores = draws.sampler_scores(t, acfg.n_batch,
-                                      self.B_global * replay.capacity)
-        rows = sample_window_rows_many(
-            replay, scores, acfg.batch_size, self.window,
-            windows_only=acfg.network.use_lstm_input, mesh=self.mesh)
+        with spans.span("learner.sample"):
+            scores = draws.sampler_scores(t, acfg.n_batch,
+                                          self.B_global * replay.capacity)
+            rows = sample_window_rows_many(
+                replay, scores, acfg.batch_size, self.window,
+                windows_only=acfg.network.use_lstm_input, mesh=self.mesh)
         return drqn.train(learner, rows, t, acfg)
 
     # -- init --------------------------------------------------------------
@@ -417,37 +419,47 @@ class TrainFunctions:
         ``draws.params``."""
         cfg, env, acfg = self.cfg, self.cfg.env, self.cfg.agent
         B, N, C, D = self.B, self.N, self.C, self.D
-        env_state = draws.reset(env, B, self.dtype)
-        a0 = draws.warmup_actions(env, B)
-        # warmup and pretrain never replay the recorded trace: the
-        # reference arms it after the pretrain loop (main_test.py:118)
-        env_state, obs0, rews0 = E.step_collision(env, env_state, a0, 0)
-        eps0 = float(acfg.eps_init)
-        state = E.obtain_state(env, env_state, obs0, a0, rews0, 0, eps0)
-        replay = FusedWindowReplay.create(
-            B, cfg.memory_size, N, D, self.store_dtype, num_actions=C,
-            pad=self.window, device=self.device)
-        history = torch.zeros((B, N, self.T * self.Dp),
-                              dtype=self.store_dtype, device=self.device)
-        for i in range(cfg.pretrain_length * cfg.step_size * 5):
-            acts = draws.pretrain_actions(i, env, B)
-            env_state, obs, _ = self.pretrain_env(env, env_state, acts, 0)
-            nxt = E.obtain_state(env, env_state, obs, acts, rews0, 0, eps0)
-            replay.add_lockstep(state, acts, rews0)
-            history = self.history_push(history, nxt)
-            state = nxt
-        if learner is None:
-            learner = drqn.init_learner(
-                draws.params(D, C, acfg, self.dtype), acfg)
-        return TrainCarry(
-            env_state=env_state, history=history, state=state, replay=replay,
-            learner=learner, eps_state=pol.eps_greedy_init(acfg.eps_init),
-            beta=np.float32(acfg.beta),
-            sum_ia_prev=torch.zeros(B, dtype=self.dtype, device=self.device),
-            ia_counter=torch.zeros((B, N), dtype=torch.int32,
-                                   device=self.device),
-            prev_actions=torch.full((B, N), -1, dtype=torch.int32,
-                                    device=self.device))
+        with spans.once("setup.carry"):
+            with spans.once("setup.warmup"):
+                env_state = draws.reset(env, B, self.dtype)
+                a0 = draws.warmup_actions(env, B)
+                # warmup and pretrain never replay the recorded trace: the
+                # reference arms it after the pretrain loop
+                # (main_test.py:118)
+                env_state, obs0, rews0 = E.step_collision(env, env_state,
+                                                          a0, 0)
+                eps0 = float(acfg.eps_init)
+                state = E.obtain_state(env, env_state, obs0, a0, rews0, 0,
+                                       eps0)
+            replay = FusedWindowReplay.create(
+                B, cfg.memory_size, N, D, self.store_dtype, num_actions=C,
+                pad=self.window, device=self.device)
+            history = torch.zeros((B, N, self.T * self.Dp),
+                                  dtype=self.store_dtype, device=self.device)
+            with spans.once("setup.pretrain"):
+                for i in range(cfg.pretrain_length * cfg.step_size * 5):
+                    acts = draws.pretrain_actions(i, env, B)
+                    env_state, obs, _ = self.pretrain_env(env, env_state,
+                                                          acts, 0)
+                    nxt = E.obtain_state(env, env_state, obs, acts, rews0,
+                                         0, eps0)
+                    replay.add_lockstep(state, acts, rews0)
+                    history = self.history_push(history, nxt)
+                    state = nxt
+            if learner is None:
+                learner = drqn.init_learner(
+                    draws.params(D, C, acfg, self.dtype), acfg)
+            return TrainCarry(
+                env_state=env_state, history=history, state=state,
+                replay=replay, learner=learner,
+                eps_state=pol.eps_greedy_init(acfg.eps_init),
+                beta=np.float32(acfg.beta),
+                sum_ia_prev=torch.zeros(B, dtype=self.dtype,
+                                        device=self.device),
+                ia_counter=torch.zeros((B, N), dtype=torch.int32,
+                                       device=self.device),
+                prev_actions=torch.full((B, N), -1, dtype=torch.int32,
+                                        device=self.device))
 
     # -- one slot ----------------------------------------------------------
 
@@ -489,15 +501,49 @@ class TrainFunctions:
                                               acfg.eps_decay, acfg.eps_min)
         beta = pol.boltzman_update(pol.BoltzmanState(beta=carry.beta),
                                    t).beta
-        q = self.qvalues(carry.learner, carry.history)
-        actions = self._select(q, t, episode, eps_state, beta,
-                               draws).to(torch.int32)
+        with spans.span("nets.act"):
+            q = self.qvalues(carry.learner, carry.history)
+        with spans.span("loop.select"):
+            actions = self._select(q, t, episode, eps_state, beta,
+                                   draws).to(torch.int32)
 
-        env_state, obs, rewards = self.step_env(env, carry.env_state,
-                                                actions, t, trace=self.trace)
-        next_state = E.obtain_state(env, env_state, obs, actions, rewards,
-                                    episode, float(eps_state.eps))
+        with spans.span("env.step"):
+            env_state, obs, rewards = self.step_env(
+                env, carry.env_state, actions, t, trace=self.trace)
+        with spans.span("env.state"):
+            next_state = E.obtain_state(env, env_state, obs, actions,
+                                        rewards, episode,
+                                        float(eps_state.eps))
 
+        with spans.span("loop.shape"):
+            sum_r, shaped, sum_ia_prev, ia_counter = self._shape(
+                carry, env_state, actions, rewards, t)
+        with spans.span("loop.replay_add"):
+            carry.replay.add_lockstep(carry.state, actions, shaped)
+        with spans.span("loop.history"):
+            history = self.history_push(carry.history, next_state)
+
+        # per-episode velocity kicks at episode end (main_test.py:226-233)
+        if (env.mobility_vary
+                and t % cfg.episode_interval == cfg.episode_interval - 1):
+            with spans.span("env.kicks"):
+                env_state = E.update_velocity(
+                    env, env_state, draws.velocity_kicks(t, self.B, self.N))
+
+        carry = carry.replace(
+            env_state=env_state, history=history, state=next_state,
+            eps_state=eps_state, beta=beta, sum_ia_prev=sum_ia_prev,
+            ia_counter=ia_counter, prev_actions=actions)
+        logs = {"sum_reward": sum_r, "actions": actions,
+                "eps": float(eps_state.eps),
+                "pos_x": pos_pre if cfg.save_positions else None}
+        return carry, logs
+
+    def _shape(self, carry: TrainCarry, env_state, actions, rewards, t: int):
+        """Reward shaping per user in the reference's order
+        (main_test.py:153-206): (per-env reward sum, shaped rewards, the
+        ia sums and repeat counters to carry)."""
+        cfg = self.cfg
         # on the CPU cumsum adds the users in index order, as XLA's CPU
         # reduce does (torch.sum pairs them, one ULP off for PRR
         # fractions); that order holds for CPU parity with JAX only, as
@@ -525,32 +571,18 @@ class TrainFunctions:
             # a product with the reciprocal, as XLA rewrites x / N; the
             # quotient is one ULP away for N = 6 or 20
             shaped = shaped + (sum_r * (1.0 / self.N))[:, None]
-
-        carry.replay.add_lockstep(carry.state, actions, shaped)
-        history = self.history_push(carry.history, next_state)
-
-        # per-episode velocity kicks at episode end (main_test.py:226-233)
-        if (env.mobility_vary
-                and t % cfg.episode_interval == cfg.episode_interval - 1):
-            env_state = E.update_velocity(
-                env, env_state, draws.velocity_kicks(t, self.B, self.N))
-
-        carry = carry.replace(
-            env_state=env_state, history=history, state=next_state,
-            eps_state=eps_state, beta=beta, sum_ia_prev=sum_ia_prev,
-            ia_counter=ia_counter, prev_actions=actions)
-        logs = {"sum_reward": sum_r, "actions": actions,
-                "eps": float(eps_state.eps),
-                "pos_x": pos_pre if cfg.save_positions else None}
-        return carry, logs
+        return sum_r, shaped, sum_ia_prev, ia_counter
 
     def slot_step(self, carry: TrainCarry, t: int, draws: Draws):
         """One slot with its train event when the gate opens; logs carry
         ``loss`` (a 0-dim tensor, or None on a slot without training)."""
-        carry, logs = self.slot_core(carry, t, draws)
-        loss = None
-        if self.train_gate(t, carry.replay):
-            loss = self.train_call(carry.learner, carry.replay, t, draws)
+        with spans.span("loop.slot", t=t):
+            carry, logs = self.slot_core(carry, t, draws)
+            loss = None
+            if self.train_gate(t, carry.replay):
+                with spans.span("learner.event"):
+                    loss = self.train_call(carry.learner, carry.replay, t,
+                                           draws)
         return carry, dict(logs, loss=loss)
 
 
@@ -562,7 +594,8 @@ def make_train_functions(cfg: ExperimentConfig, dtype=torch.float32,
     optional [T_rec, N] recorded x positions replayed into the env (the
     reference's load_positions fixture, main_test.py:118).  ``mesh``: a
     parallel/mesh.py ``Mesh`` this process is a rank of."""
-    return TrainFunctions(cfg, dtype, device, trace, mesh)
+    with spans.once("setup.functions"):
+        return TrainFunctions(cfg, dtype, device, trace, mesh)
 
 
 def run_experiment(cfg: ExperimentConfig, seed: int | None = None,

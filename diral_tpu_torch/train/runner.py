@@ -29,6 +29,7 @@ from diral_tpu_torch.parallel import mesh as pmesh
 from diral_tpu_torch.train import checkpoint as ckpt
 from diral_tpu_torch.train.loop import Draws, make_train_functions
 from diral_tpu_torch.train.metrics import ResultWriter
+from diral_tpu_torch.utils import spans
 
 
 def _chunk_logs(logs, dtype, device, mesh=None):
@@ -36,21 +37,22 @@ def _chunk_logs(logs, dtype, device, mesh=None):
     Slots without a train event log a zero loss, as the JAX package does.
     Under a ``mesh`` the env-axis logs are all-gathered over the data
     group (the loss is replicated)."""
-    zero = torch.zeros((), dtype=dtype, device=device)
-    out = {
-        "sum_reward": torch.stack([l["sum_reward"] for l in logs]),
-        "actions": torch.stack([l["actions"] for l in logs]),
-        "loss": torch.stack([zero if l["loss"] is None
-                             else l["loss"].to(dtype) for l in logs]),
-    }
-    if logs[0]["pos_x"] is not None:
-        out["pos_x"] = torch.stack([l["pos_x"] for l in logs])
-    if mesh is not None:
-        out.update({k: pmesh.all_gather(v, mesh, 1)
-                    for k, v in out.items() if k != "loss"})
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    out["eps"] = np.asarray([l["eps"] for l in logs], np.float32)
-    return out
+    with spans.span("runner.log_read"):
+        zero = torch.zeros((), dtype=dtype, device=device)
+        out = {
+            "sum_reward": torch.stack([l["sum_reward"] for l in logs]),
+            "actions": torch.stack([l["actions"] for l in logs]),
+            "loss": torch.stack([zero if l["loss"] is None
+                                 else l["loss"].to(dtype) for l in logs]),
+        }
+        if logs[0]["pos_x"] is not None:
+            out["pos_x"] = torch.stack([l["pos_x"] for l in logs])
+        if mesh is not None:
+            out.update({k: pmesh.all_gather(v, mesh, 1)
+                        for k, v in out.items() if k != "loss"})
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out["eps"] = np.asarray([l["eps"] for l in logs], np.float32)
+        return out
 
 
 def seeded_draws(cfg: ExperimentConfig, seed: int | None, simulation: int,

@@ -1,1 +1,1 @@
-"""Small host-side utilities (plotting)."""
+"""Small host-side utilities (plotting; the program's spans)."""

@@ -1,5 +1,5 @@
 """The port's measurement entry points (diral_tpu_torch/bench.py and
-diral_tpu_torch/scripts/{bench_event,kernel_ceiling,profile_slot}.py)
+diral_tpu_torch/scripts/{bench_event,kernel_ceiling}.py)
 against the root bench.py and scripts/*.py of the JAX package.
 
 Exact: the analytic model FLOPs, the env step's traffic floor in bytes,
@@ -21,7 +21,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 if ROOT not in sys.path:
@@ -34,7 +33,6 @@ from diral_tpu_torch import bench as tbench  # noqa: E402
 from diral_tpu_torch import config as tconfig  # noqa: E402
 from diral_tpu_torch.envs import v2v_env as tenv  # noqa: E402
 from diral_tpu_torch.scripts import bench_event, kernel_ceiling  # noqa: E402
-from diral_tpu_torch.scripts import profile_slot  # noqa: E402
 
 SCALE_YAML = os.path.join(ROOT, "configs", "scale_100v_50r.yaml")
 
@@ -319,23 +317,6 @@ def test_kernel_ceiling_on_cpu(monkeypatch):
         assert row["rows"] == sizes[name]["rows"]
         assert all(math.isfinite(row[k]) for k in
                    ("fwd_ms", "dual_ms", "triple_ms", "fwdbwd_ms"))
-
-
-def test_profile_slot_shim_on_cpu(tmp_path):
-    """The shim over train/profiling.py, on configs/toy_4ue_3r.yaml cut to
-    batch 16 and 32-wide layers."""
-    raw = yaml.safe_load(open(os.path.join(ROOT, "configs",
-                                           "toy_4ue_3r.yaml")))
-    raw.update(pretrain_length=1)
-    raw["RLAgent"].update(batch_size=16)
-    raw["RLAgent"]["network"]["layers"] = {1: 32, 2: 32}
-    path = tmp_path / "cut.yaml"
-    path.write_text(yaml.safe_dump(raw))
-    out = profile_slot.main([str(path), "--envs", "1", "--slots", "25",
-                             "--device", "cpu"])
-    assert out["slots_per_sec"] > 0 and out["envs"] == 1
-    assert set(out) == {"config", "envs", "dtype", "slots_per_sec",
-                        "categories", "top_ops"}
 
 
 def test_chip_smoke_key_lists_equal_jax():

@@ -61,7 +61,7 @@ def test_package_imports_no_jax():
                  "interop.bridge", "interop.gateway_env", "interop.serve",
                  "interop.wire", "scripts.serve_campaign", "bench",
                  "scripts.bench_event", "scripts.kernel_ceiling",
-                 "scripts.profile_slot", "scripts.episode_campaign",
+                 "utils.spans", "scripts.episode_campaign",
                  "scripts.ppo_campaign", "scripts.ps_campaign",
                  "scripts.episode_rate", "utils.plotting",
                  "scripts.ref_sweep", "scripts.render_results"):
