@@ -49,7 +49,15 @@ failure exits non-zero:
    D = 100), H = 1024 (512 rows, D = 23) and at ragged batches (97 and
    2047 rows, D = 23); times against the bound, the plain version and
    cuDNN's LSTM, and K3's row pass and reduction (partial + combine)
-   device times from torch.profiler, each beside its own bound;
+   device times from torch.profiler, each beside its own bound; then K1
+   at configs[4]'s acting shape (102,400 rows, D = 100, f32 and bf16):
+   bit-equal to K4 on the same weights (K1's cells divide without a
+   branch and its step 0 skips the zero h tiles; K4 runs cell() as
+   written and every k tile), rows 0..1599 bit-equal to a 1600-row call,
+   the same with inputs scaled by 40 (the cells' fallback to cell()) and
+   with zero rows and -0.0 biases, K1's reciprocal bit-equal to
+   __fdiv_rn(1, y) at every float y in [1, 2^126), and K1's time (CUDA
+   events and torch.profiler) beside the bound;
 7. learner phase (toy shape): ``train_on_windows`` (K2 + K3) and
    ``train_on_packed`` (K1 + K3, K4) on one sampled row batch give
    the same loss and step; the card's gradients match the CPU's plain
@@ -163,11 +171,13 @@ It imports nothing of JAX nor of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -593,6 +603,88 @@ def train_kernel_phase(torch, np, K1, dev, cuda_ms, bound, failures):
                                               8, torch.float32)
         k3_check(torch, K1, label, x2, w, b, g, T, D, failures)
     return rows
+
+
+def rcp_check(torch, K1, dev):
+    """K1's branch-free reciprocal against __fdiv_rn(1, y) at every float
+    y in [1, 2^126) (csrc lstm_rcp_check): (floats differing, least such
+    y or None)."""
+    lib = K1._library()
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    lo, hi = 0x3F800000, 0x7E800000   # 1.0, 2^126
+    K1._build.launch(lib, "lstm_rcp_check", [ctypes.c_uint, ctypes.c_uint,
+                                            ctypes.c_void_p, ctypes.c_void_p],
+                     dev, lo, hi, count, first)
+    torch.cuda.synchronize()
+    least = int(first.item()) & 0xFFFFFFFF
+    return int(count.item()), (
+        None if least == 0xFFFFFFFF else
+        struct.unpack("<f", struct.pack("<I", least))[0])
+
+
+def act_kernel_phase(torch, np, K1, dev, cuda_ms, failures):
+    """Phase 6 at the acting shape of configs[4] (102,400 rows, T = 6, D =
+    100, H = 256), float32 and bfloat16 windows: K1, whose cells divide
+    without a branch and whose step 0 skips the zero h tiles, bit-equal
+    to K4 (which runs cell() as written and every k tile) on the same
+    weights, rows 0..1599 of the call bit-equal to a 1600-row call, the
+    same at 1600 rows with inputs scaled by 40 (sigmoids whose 1 +
+    exp(-v) passes 2^126 take cell()) and with half the rows zero and
+    every third bias -0.0; K1's reciprocal bit-equal to __fdiv_rn(1, y)
+    at every float y in [1, 2^126).  Returns the K1 row's fields for this
+    shape: its CUDA-event and device time (f32) beside the bound."""
+    B, D, H, T = 102_400, 100, 256, 6
+    Dp = K1.padded_dim(D)
+    differ, least = rcp_check(torch, K1, dev)
+    log(f"K1 reciprocal vs __fdiv_rn(1, y), every float y in [1, 2^126): "
+        f"{differ} differ (least {least}) {'ok' if differ == 0 else 'FAIL'}")
+    if differ:
+        failures.append("K1 reciprocal")
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x2, w, b, _, _, _ = lstm_train_inputs(torch, np, K1, dev, B, D, H, T,
+                                              11, dtype)
+        got = K1.lstm_last_flat(x2, w, b, T)
+        exact, _ = K1.lstm_last_flat_dual(x2, w, b, w, b, T)
+        head = K1.lstm_last_flat(x2[:1600], w, b, T)
+        xs, ws, bs = x2[:1600] * 40, w * 40, b * 40
+        sat = K1.lstm_last_flat(xs, ws, bs, T)
+        sat_exact, _ = K1.lstm_last_flat_dual(xs, ws, bs, ws, bs, T)
+        xz, bz = x2[:1600].clone(), b.clone()
+        xz[:800] = 0
+        bz[::3] = -0.0
+        zero = K1.lstm_last_flat(xz, w, bz, T)
+        zero_exact, _ = K1.lstm_last_flat_dual(xz, w, bz, w, bz, T)
+        torch.cuda.synchronize()
+        checks = (("K1 vs K4", torch.equal(got, exact)),
+                  ("rows :1600 vs a 1600-row call",
+                   torch.equal(got[:1600], head)),
+                  ("saturated K1 vs K4", torch.equal(sat, sat_exact)),
+                  ("zero rows, -0.0 biases, K1 vs K4",
+                   torch.equal(zero, zero_exact)))
+        plan = K1._fwd_plan(B, Dp, H, 1)
+        log(f"K1 act {name}: B={B} T={T} D={D} H={H} ({plan.bm} rows x "
+            f"{plan.blocks} blocks, {plan.smem} B shared); " + "; ".join(
+                f"{k} {'bit-equal' if ok else 'FAIL'}" for k, ok in checks))
+        for what, ok in checks:
+            if not ok:
+                failures.append(f"K1 act {name}: {what}")
+        if dtype != torch.float32:
+            continue
+        lim = bound(2.0 * B * T * (D + H) * 4 * H,
+                    4 * (B * T * Dp + (D + H) * 4 * H + 4 * H + B * H),
+                    BF16_PEAK)
+        ms = cuda_ms(lambda: K1.lstm_last_flat(x2, w, b, T))
+        dev_ms = kernel_device_ms(
+            torch, lambda: K1.lstm_last_flat(x2, w, b, T),
+            ["lstm_window_tc_kernel"], 5, failures,
+            "K1 act")["lstm_window_tc_kernel"]
+        log(f"K1 act f32 time: {ms:.4f} ms (device {ms_text(dev_ms)}); "
+            f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+        out = dict(act_rows=B, act_ms=ms, act_device_ms=dev_ms,
+                   act_bound_ms=lim["bound_ms"])
+    return out
 
 
 def ppo_kernel_phase(torch, np, K1, dev, cuda_ms, rows, failures):
@@ -2656,6 +2748,8 @@ def main() -> int:
     # 6. training kernels K2, K3, K4
     rows.update(train_kernel_phase(torch, np, K1, dev, cuda_ms, bound,
                                    failures))
+    rows["K1"].update(act_kernel_phase(torch, np, K1, dev, cuda_ms,
+                                       failures))
 
     from diral_tpu_torch.agents import drqn
     from diral_tpu_torch.train import loop, runner

@@ -41,7 +41,9 @@ block (16, 32 or 64) that fit 227 KB of shared memory and fill the
 H100's 132 SMs where B allows, and refuses a shape that no tile fits (K2
 and K4 at H = 1024); ``_fragments`` permutes each net's packed bf16
 weights into the order of the mma B fragments, so each warp streams its
-units' weights from L2 with 16-byte loads.
+units' weights from L2 with 16-byte loads.  K1's cells divide without a
+branch and its first step skips the h tiles (zeros); chip_smoke.py holds
+it bit-equal to K4, which does neither.
 
 K3's reduction cuts the T*B rows into S chunks by ``_reduce_plan``, a
 function of the shape alone (never of the card), so dW and db are the
