@@ -1,28 +1,34 @@
 """One run of one training cell: set-up, the measured window, the traced
 slots, the per-layer readers, and the check.
 
-The window continues the set-up's carry with ``runner.run_chunks``, the
-loop the ``train`` verb runs, in chunks of the traffic's ``chunk_slots``,
-and ends at the first chunk boundary after ``seconds`` (and after the
-traced slots).  Its rate counts
-every env-slot over the whole wall time (each chunk ends on its log
-read, a device sync).  An episode's time runs between device events
-recorded after the last slot of consecutive episodes, train event
-included; the events add no synchronisation.
+The core knows no agent: the cell's algorithm module (``spec.cell``
+loads ``benchmark/algorithms/<algorithm>.py``; its docstring and
+benchmark/README.md give the contract) builds the program and drives it
+through the set-up, and hands this file a session whose window it runs
+and a capture that it checks.
 
-With ``trace`` the harness wraps its calls into the layers (the acting
-forward, the env step with the state assembly, the train event, and the
-LSTM inside the acting forward) in CUDA-event spans over the whole
-window and ``record_function`` ranges, and profiles two episodes' slots
-from the window's second episode twice over: first with the host's ops
+The window continues the set-up's state through the session's steps
+(DRQN: ``runner.run_chunks``, the loop the ``train`` verb runs, in chunks
+of the traffic's ``chunk_slots``), and ends at the first step after
+``seconds`` (and after the traced slots).  Its rate counts every
+env-slot over the whole wall time (each step ends on a sync).  An
+episode's time runs between device events recorded after the last slot
+of consecutive episodes, train event included; the events add no
+synchronisation.
+
+With ``trace`` the session wraps its calls into the layers in CUDA-event
+spans over the whole window and ``record_function`` ranges, and the core
+profiles the session's two ranges of slots: first with the host's ops
 (for the layer attribution), then the device alone (busy and idle time,
-the breakdown; see ``harness.trace``).  The chunks that end after the
-profiles give the traced run's rate by the host's clock (``after_trace``:
-slots and seconds), which the profilers do not slow."""
+the breakdown; see ``harness.trace``).  The steps that end after the
+profiles give the traced run's rate by the host's clock
+(``after_trace``: slots and seconds), which the profilers do not slow."""
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import math
 import statistics
 import time
 from types import SimpleNamespace
@@ -30,19 +36,12 @@ from types import SimpleNamespace
 import torch
 import torch.distributed as dist
 
-from benchmark.harness import capture, peaks
+from benchmark.harness import peaks
 from benchmark.harness import spec as spec_mod
 from benchmark.harness.trace import WINDOW, Trace
-from benchmark.reference import check
-from benchmark.reference import env as ref_env
 from diral_tpu_torch.config import load_config
-from diral_tpu_torch.envs import v2v_env as E
-from diral_tpu_torch.models import qnets
 from diral_tpu_torch.parallel import distributed
 from diral_tpu_torch.parallel import mesh as pmesh
-from diral_tpu_torch.train import runner
-
-FAR = 10 ** 12   # the window's nominal end: it stops on time, not on slots
 
 
 class _Stamps:
@@ -72,9 +71,9 @@ class _Stamps:
 class _Spans:
     """A CUDA-event span and a ``record_function`` range per layer call."""
 
-    def __init__(self, device):
+    def __init__(self, device, layers):
         self.stamps = _Stamps(device)
-        self.pairs = {"act": [], "env": [], "train": []}
+        self.pairs = {k: [] for k in layers}
         self.open = {}
 
     def begin(self, layer):
@@ -93,66 +92,47 @@ class _Spans:
         return {k: self.stamps.intervals_ms(v) for k, v in self.pairs.items()}
 
 
-def _wrap_layers(fns, spans: _Spans):
-    """Instance and module attributes that time the layer calls; returns
-    the undo."""
-    qvalues, step_env, train_call = fns.qvalues, fns.step_env, fns.train_call
-    obtain_state, lstm_last = E.obtain_state, getattr(qnets, "_lstm_last",
-                                                      None)
-
-    def timed_qvalues(*a, **k):
-        spans.begin("act")
-        out = qvalues(*a, **k)
-        spans.end("act")
-        return out
-
-    def timed_step_env(*a, **k):
-        spans.begin("env")
-        return step_env(*a, **k)
-
-    def timed_obtain_state(*a, **k):
-        out = obtain_state(*a, **k)
-        if "env" in spans.open:
-            spans.end("env")
-        return out
-
-    def timed_train_call(*a, **k):
-        spans.begin("train")
-        out = train_call(*a, **k)
-        spans.end("train")
-        return out
-
-    def ranged_lstm(*a, **k):
-        with torch.profiler.record_function("bench.lstm_fwd"):
-            return lstm_last(*a, **k)
-
-    fns.qvalues, fns.step_env = timed_qvalues, timed_step_env
-    fns.train_call = timed_train_call
-    E.obtain_state = timed_obtain_state
-    if lstm_last is not None:
-        qnets._lstm_last = ranged_lstm
-
-    def undo():
-        del fns.qvalues, fns.train_call
-        fns.step_env = step_env
-        E.obtain_state = obtain_state
-        if lstm_last is not None:
-            qnets._lstm_last = lstm_last
-    return undo
-
-
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def shapes(cfg, fns) -> dict:
-    acfg = cfg.agent
-    return {"B": fns.B, "B_global": fns.B_global, "N": fns.N, "C": fns.C,
-            "D": fns.D, "Dp": fns.Dp, "T": fns.T,
-            "H1": acfg.network.layers[0], "H2": acfg.network.layers[1],
-            "batch": acfg.batch_size, "n_batch": acfg.n_batch,
-            "interval": cfg.episode_interval}
+def program_config(cfg_file_cfg, traffic: dict, overrides: dict | None):
+    """The configuration as the cell runs it: the config file's, with the
+    traffic's env count and nothing written to disk; ``overrides`` (tests
+    and the readings tool) replace top-level, agent, network or engine
+    fields by name."""
+    cfg = dataclasses.replace(
+        cfg_file_cfg, save_results=False, save_model=False,
+        save_positions=False,
+        engine=dataclasses.replace(cfg_file_cfg.engine,
+                                   num_envs=int(traffic["num_envs"])))
+    for key, value in (overrides or {}).items():
+        group, _, leaf = key.rpartition(".")
+        if group == "":
+            cfg = dataclasses.replace(cfg, **{leaf: value})
+        elif group == "agent":
+            cfg = dataclasses.replace(
+                cfg, agent=dataclasses.replace(cfg.agent, **{leaf: value}))
+        elif group == "network":
+            cfg = dataclasses.replace(cfg, agent=dataclasses.replace(
+                cfg.agent, network=dataclasses.replace(
+                    cfg.agent.network, **{leaf: value})))
+        elif group == "engine":
+            cfg = dataclasses.replace(
+                cfg, engine=dataclasses.replace(cfg.engine, **{leaf: value}))
+        else:
+            raise KeyError(f"bad override {key!r}")
+    return cfg
+
+
+def verdict(numbers: dict, limits: dict, names) -> tuple[bool, dict]:
+    """(correct, {name: {"value", "limit"}} in the order of ``names``):
+    correct when every number is finite and at most its limit."""
+    out = {k: {"value": numbers[k], "limit": limits[k]} for k in names}
+    ok = all(math.isfinite(v["value"]) and v["value"] <= v["limit"]
+             for v in out.values())
+    return ok, out
 
 
 def _gathered(value, mesh) -> list:
@@ -178,90 +158,86 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, trace: bool,
     """The result line's fields for one run (``checks`` last); under a
     mesh every rank calls this, and ranks other than 0 return None."""
     tp = cell.traffic_params
-    cfg = capture.program_config(load_config(cell.config_path), tp,
-                                 overrides)
-    ref_env.check_supported(cfg)
+    algo = cell.algorithm
+    cfg = program_config(load_config(cell.config_path), tp, overrides)
+    algo.supported(cfg)
     mesh = None
     if tp.get("mesh"):
         device, mesh = join_mesh(tp["mesh"], rank, world, port, device)
-    fns, carry, draws, t, cap = capture.set_up(
-        cfg, seed, device, int(tp["start_slot"]), mesh=mesh)
+    session = algo.set_up(cfg, tp, seed, device, mesh)
     _sync(device)
-    setup_s = time.perf_counter() - t_start - cap.seconds
-    sh = shapes(cfg, fns)
-    I = cfg.episode_interval
+    setup_s = time.perf_counter() - t_start - session.capture.seconds
+    sh = session.shapes
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     stamps = _Stamps(device)
-    spans = _Spans(device) if trace else None
-    undo = _wrap_layers(fns, spans) if trace else None
-    traced = 2 * I
-    # [first slot, activities, profile]: with the host's ops, then the
-    # device alone (on the CPU, the host's ops twice)
+    spans = _Spans(device, session.layers) if trace else None
+    undo = session.wrap_layers(spans) if trace else None
+    # [first slot, end, activities, profile]: with the host's ops, then
+    # the device alone (on the CPU, the host's ops twice)
     P = torch.profiler.ProfilerActivity
     on_card = device.type == "cuda"
-    profiles = [[t + I, [P.CPU, P.CUDA] if on_card else [P.CPU], None],
-                [t + I + traced, [P.CUDA] if on_card else [P.CPU], None]]
-    trace_end = t + I + 2 * traced
-    slot_step = fns.slot_step
+    (first0, end0), (first1, end1) = session.profiles
+    profiles = [[first0, end0, [P.CPU, P.CUDA] if on_card else [P.CPU],
+                 None],
+                [first1, end1, [P.CUDA] if on_card else [P.CPU], None]]
+    traced = end1 - first1
+    trace_end = end1
 
-    def window_slot_step(carry_, s, draws_):
+    def before_slot(s):
         for p in profiles:
             if trace and s == p[0]:
                 _sync(device)
-                p[2] = torch.profiler.profile(activities=p[1])
-                p[2].start()
-                if P.CPU in p[1]:
+                p[3] = torch.profiler.profile(activities=p[2])
+                p[3].start()
+                if P.CPU in p[2]:
                     p.append(torch.profiler.record_function(WINDOW))
-                    p[3].__enter__()
-        out = slot_step(carry_, s, draws_)
-        if s % I == I - 1:
+                    p[4].__enter__()
+
+    def after_slot(s):
+        if session.episode_end(s):
             stamps.mark()
         for p in profiles:
-            if trace and s == p[0] + traced - 1:
+            if trace and s == p[1] - 1:
                 _sync(device)
-                if len(p) > 3:
-                    p[3].__exit__(None, None, None)
-                p[2].stop()
-        return out
+                if len(p) > 4:
+                    p[4].__exit__(None, None, None)
+                p[3].stop()
 
-    fns.slot_step = window_slot_step
-    start = t
+    start = t = session.start
     wall0 = time.perf_counter()
     stamps.mark()
-    chunk_ends = []      # (slot, host clock) after each chunk's log read
-    for carry, t, _ in runner.run_chunks(fns, carry, draws, start, FAR,
-                                         int(tp["chunk_slots"]),
-                                         torch.float32):
+    chunk_ends = []      # (slot, host clock) after each step's sync
+    steps = session.steps(before_slot, after_slot)
+    for t in steps:
         chunk_ends.append((t, time.perf_counter()))
         done = (time.perf_counter() - wall0 >= seconds
                 and (not trace or t >= trace_end))
         if mesh is not None:
-            # every rank stops after the same chunk: rank 0's clock decides
+            # every rank stops after the same step: rank 0's clock decides
             flag = torch.tensor([float(done)], device=device)
             dist.broadcast(flag, 0)
             done = bool(flag.item())
         if done:
             break
+    steps.close()
     _sync(device)
     wall = time.perf_counter() - wall0
-    del fns.slot_step
     if undo is not None:
         undo()
     slots = t - start
     after = [c for c in chunk_ends if c[0] >= trace_end]
     after_trace = ((after[-1][0] - after[0][0], after[-1][1] - after[0][1])
                    if len(after) >= 2 else None)
-    events = sum(1 for s in range(start, t) if fns.train_gate(s, carry.replay))
+    events = session.events(start, t)
     episodes = stamps.intervals_ms()
     memory_peak = max(_gathered(torch.cuda.max_memory_allocated(device)
                                 if device.type == "cuda" else 0, mesh))
     span_ms = spans.ms() if spans else {}
-    ranges, parsed = ((Trace(profiles[0][2]), Trace(profiles[1][2]))
+    ranges, parsed = ((Trace(profiles[0][3]), Trace(profiles[1][3]))
                       if trace else (None, None))
-    traced_events = sum(1 for s in range(trace_end - traced, trace_end)
-                        if fns.train_gate(s, carry.replay))
+    traced_events = session.events(trace_end - traced, trace_end)
     # each rank's NCCL kernel ms a train event in the device-only profile
     nccl_s = parsed.nccl_s() if trace else 0.0
     nccl_ms = _gathered(1e3 * nccl_s / traced_events
@@ -275,7 +251,7 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, trace: bool,
     metrics = {}
     # every end-to-end rate named ``*env_slots_per_s`` is the window's:
     # env-slots of all envs (of all ranks) over its whole wall time
-    e2e = {m.name: slots * sh["B_global"] / wall for m in cell.end_to_end
+    e2e = {m.name: slots * session.envs / wall for m in cell.end_to_end
            if m.name.endswith("env_slots_per_s")}
     e2e["setup_s"] = setup_s
     e2e["episode_ms_p90"] = (statistics.quantiles(
@@ -289,7 +265,7 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, trace: bool,
             nccl_ms_per_event=nccl_ms if mesh is not None else None,
             peaks=peaks.for_card(name))
         for m in cell.per_layer:
-            value = spec_mod.reader(m.name)(ctx)
+            value = spec_mod.reader(m.name, cell.root)(ctx)
             if value is not None:
                 metrics[m.name] = {"value": value, "unit": m.unit}
     else:
@@ -311,7 +287,9 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, trace: bool,
     # the program's state goes before the reference runs
     breakdown = ({"device_ops": parsed.device_ops(),
                   "idle_gaps": parsed.idle_gaps()} if parsed else None)
-    del carry, fns, draws, profiles, ranges, parsed
+    cap = session.capture
+    session.close()
+    del session, steps, undo, profiles, ranges, parsed
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -320,8 +298,8 @@ def run(cell: spec_mod.Cell, seed: int, seconds: float, trace: bool,
         if rank != 0:
             return None
     checked = time.perf_counter()
-    numbers = check.run(cap, cfg, device)
-    correct, checks = check.verdict(numbers, cell.limits)
+    numbers = algo.check(cap, cfg, device)
+    correct, checks = verdict(numbers, cell.limits, algo.LIMITS)
     log(f"check: {time.perf_counter() - checked:.3f} s")
     out = {"correct": bool(correct), "attempted": slots, "failed": 0,
            "metrics": metrics, "device": device_out}

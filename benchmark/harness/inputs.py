@@ -1,14 +1,13 @@
 """What the benchmark makes from ``--seed`` and hands to both the program
-and the reference: the initial topology, the Q-net's initial weights,
-the seed of the run's random draws, and the envs that the check samples.
+and the reference, for every algorithm: the initial topology, the seed
+of the run's random draws, and the envs that the check samples.  An
+algorithm's own inputs (DRQN: the Q-net's initial weights) are its
+module's ``weights``, made from ``generator(seed, 2, device)``.
 Everything is made on the run's device, in a few large calls."""
 
 from __future__ import annotations
 
 import torch
-
-from benchmark.reference import drqn as ref_drqn
-from benchmark.reference import env as ref_env
 
 CHECK_ENVS = 32   # envs whose every slot of the set-up the reference follows
 
@@ -45,14 +44,6 @@ def topology(cfg, seed: int, device):
         vel = torch.empty((B, N), dtype=f32, device=device).uniform_(
             1.1, 2.7, generator=g)
     return pos_x, pos_y, vel, torch.ones((B, N), dtype=f32, device=device)
-
-
-def weights(cfg, seed: int, device) -> dict:
-    """The Q-net's initial weights by leaf name (reference.drqn.LEAVES)."""
-    layers = cfg.agent.network.layers
-    return ref_drqn.make_weights(generator(seed, 2, device),
-                                 ref_env.state_dim(cfg), cfg.env.num_channels,
-                                 layers[0], layers[1], device)
 
 
 def draws_generator(seed: int, device) -> torch.Generator:

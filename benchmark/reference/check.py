@@ -1,8 +1,9 @@
 """The comparison that decides ``correct`` for a DRQN training cell.
 
-The reference makes the benchmark's inputs again from the seed (the
-topology, the Q-net's weights) and takes the random draws that were
-handed to the program (``harness.capture``).  It follows the sampled
+The reference makes the benchmark's topology again from the seed, gets
+the Q-net's initial weights as the DRQN module made them from the seed
+(never the program's), and takes the random draws that were handed to
+the program (``algorithms/drqn.py``).  It follows the sampled
 envs through the warmup, the pretrain and every set-up slot on its own
 env state, with the program's actions, judging each action against its
 own Q-values; it packs its own ring rows; and it follows the learner
@@ -88,8 +89,9 @@ class _Eps:
         return "eps", self.eps
 
 
-def run(cap, cfg, device) -> dict:
-    """The numbers of ``NUMBERS`` for one run's capture."""
+def run(cap, cfg, device, weights: dict) -> dict:
+    """The numbers of ``NUMBERS`` for one run's capture, from the Q-net's
+    initial ``weights`` by leaf name."""
     ref_env.check_supported(cfg)
     ref_drqn.disable_tf32()
     f32 = torch.float32
@@ -108,7 +110,6 @@ def run(cap, cfg, device) -> dict:
     topo = [x[idx.to(x.device)].to(device)
             for x in inputs.topology(cfg, cap.seed, device)]
     s = ref_env.blank(N, *topo)
-    weights = inputs.weights(cfg, cap.seed, device)
     bf16 = ref_drqn.lstm_precision(cfg, device)
     learner = ref_drqn.Learner(weights, acfg.learning_rate, acfg.gamma, T,
                                acfg.target_update, bf16)
@@ -224,12 +225,3 @@ def run(cap, cfg, device) -> dict:
     env_gap = max(share, float(env_off.to(f32).mean()))
     return {"act_gap": act_gap, "env_gap": env_gap, "loss_gap": loss_gap,
             "grad_gap": grad_gap, "update_gap": update_gap}
-
-
-def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """(correct, {name: {"value", "limit"}}): correct when every number is
-    finite and at most its limit."""
-    out = {k: {"value": numbers[k], "limit": limits[k]} for k in NUMBERS}
-    ok = all(np.isfinite(v["value"]) and v["value"] <= v["limit"]
-             for v in out.values())
-    return ok, out

@@ -52,7 +52,12 @@ def main(argv=None) -> int:
 
     import torch
     from benchmark.harness import spec
-    cell = spec.cell(args.workload)
+    try:
+        # loads the cell's algorithm module, which imports the program
+        cell = spec.cell(args.workload)
+    except ImportError as exc:
+        log(f"the program is not importable here: {exc}")
+        return 2
     if not torch.cuda.is_available():
         log("no CUDA device: the benchmark measures the card and does not "
             "run elsewhere")

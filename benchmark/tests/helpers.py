@@ -4,6 +4,9 @@ configured), a window of one 50-slot chunk (traced: its 50-slot chunks to
 the profiles' end)."""
 
 import dataclasses
+import functools
+import json
+import os
 import time
 
 import torch
@@ -20,6 +23,10 @@ HELD_BACK = {"name": "dynamic20v15r.train.envs8192",
              "config": "dynamic_20v_15r", "traffic": "train.envs8192",
              "chips": 1}
 CELLS = ("scale100v50r.train.envs1024", HELD_BACK["name"])
+# attempted and the check's numbers of the tiny runs as recorded before
+# DRQN moved behind its algorithm module (see the file's "source")
+RECORDED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "expected_tiny_runs.json")
 
 
 def cell(name: str) -> spec.Cell:
@@ -40,3 +47,21 @@ def run_tiny(name: str, trace: bool = False, seed: int = SEED,
     return cell_run.run(cell_, seed, 0.01, trace,
                         torch.device("cpu"), time.perf_counter(),
                         overrides=over, log=lambda *a: None, **mesh)
+
+
+@functools.cache
+def tiny_result(name: str) -> dict:
+    """``run_tiny(name)`` at its defaults, run once a process: the tests
+    that read it share the run."""
+    return run_tiny(name)
+
+
+def recorded(name: str) -> dict:
+    with open(RECORDED) as f:
+        return json.load(f)["runs"][name]
+
+
+def numbers(result: dict) -> dict:
+    """A result's ``attempted`` and its check values, as recorded."""
+    return {"attempted": result["attempted"],
+            "checks": {k: c["value"] for k, c in result["checks"].items()}}

@@ -11,15 +11,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import torch  # noqa: E402
 
-from benchmark.tests.helpers import MESH_CELL, SEED, run_tiny  # noqa: E402
-from benchmark.tools.readings import planted  # noqa: E402
+from benchmark.tests.helpers import MESH_CELL, SEED, cell  # noqa: E402
+from benchmark.tests.helpers import run_tiny  # noqa: E402
 
 
 def main():
     rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     fault = sys.argv[4] if len(sys.argv) > 4 else None
     torch.set_num_threads(1)
-    with planted(fault):
+    with cell(MESH_CELL).algorithm.planted(fault):
         result = run_tiny(MESH_CELL, trace=True, seed=SEED + 5,
                           overrides={"engine.num_envs": 4}, rank=rank,
                           world=4, port=port)

@@ -6,8 +6,7 @@ one card, so there is no exchange between cards to leave out."""
 
 import pytest
 
-from benchmark.tests.helpers import CELLS, SEED, run_tiny
-from benchmark.tools.readings import planted
+from benchmark.tests.helpers import CELLS, SEED, cell, run_tiny
 
 EXPECT = {"unchanged": "update_gap", "half_batch": "loss_gap",
           "reward": "env_gap"}
@@ -15,7 +14,7 @@ EXPECT = {"unchanged": "update_gap", "half_batch": "loss_gap",
 
 @pytest.mark.parametrize("fault", sorted(EXPECT))
 def test_fault_is_caught(fault):
-    with planted(fault):
+    with cell(CELLS[1]).algorithm.planted(fault):
         result = run_tiny(CELLS[1], seed=SEED + 3)
     assert not result["correct"]
     c = result["checks"][EXPECT[fault]]

@@ -36,6 +36,8 @@ def test_loaded_modules_hold_nothing_forbidden():
         "import benchmark.run as run\n"
         "for m in spec.load()['per_layer']:\n"
         "    spec.reader(m['name'])\n"
+        "for w in spec.load()['workloads']:\n"
+        "    spec.cell(w['name'])\n"
         "print(','.join(run.forbidden_modules()))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,
                          capture_output=True, text=True, timeout=120,

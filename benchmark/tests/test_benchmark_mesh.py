@@ -1,7 +1,8 @@
 """The four-card cell's path at a tiny size on the CPU: four processes
 joined over gloo, one env each.  Its result is well formed and correct,
-with the mesh's per-layer metrics; with the window batch's all-reduce
-left out between the ranks it comes out not correct."""
+with the mesh's per-layer metrics, and its slots and check numbers are
+the recorded ones; with the window batch's all-reduce left out between
+the ranks it comes out not correct."""
 
 import json
 import os
@@ -11,6 +12,7 @@ import sys
 import pytest
 
 from benchmark.harness import ranks, spec
+from benchmark.tests.helpers import MESH_CELL, numbers, recorded
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -29,8 +31,14 @@ def _run(tmp_path, fault=None):
     return json.loads(out.read_text())
 
 
-def test_mesh_cell_tiny(tmp_path):
-    result = _run(tmp_path)
+@pytest.fixture(scope="module")
+def sound(tmp_path_factory):
+    """The sound run, shared by the tests that read it."""
+    return _run(tmp_path_factory.mktemp("mesh"))
+
+
+def test_mesh_cell_tiny(sound):
+    result = sound
     assert result["correct"] is True
     assert result["device"]["count"] == 4
     assert list(result)[-1] == "checks"
@@ -42,3 +50,9 @@ def test_mesh_cell_tiny(tmp_path):
 def test_mesh_fault_is_caught(tmp_path, fault):
     result = _run(tmp_path, fault)
     assert not result["correct"]
+
+
+def test_mesh_cell_equals_recorded(sound):
+    """Bit for bit the slots and check numbers recorded before DRQN moved
+    behind its algorithm module."""
+    assert numbers(sound) == recorded(MESH_CELL)

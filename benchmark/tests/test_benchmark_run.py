@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from benchmark.harness import spec
-from benchmark.tests.helpers import CELLS, cell, run_tiny
+from benchmark.tests.helpers import CELLS, cell, run_tiny, tiny_result
 
 
 def _well_formed(result, cell_, trace):
@@ -41,7 +41,7 @@ def _well_formed(result, cell_, trace):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_tiny_run(name):
-    _well_formed(run_tiny(name), cell(name), False)
+    _well_formed(tiny_result(name), cell(name), False)
 
 
 def test_tiny_traced_run():

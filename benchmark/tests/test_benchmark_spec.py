@@ -17,15 +17,20 @@ def test_every_cell_resolves():
         assert os.path.exists(cell.config_path)
         assert {m.name for m in cell.end_to_end} >= {"setup_s"}
         assert len(cell.end_to_end) >= 2 and cell.per_layer
-        assert set(cell.limits) == {"act_gap", "env_gap", "loss_gap",
-                                    "grad_gap", "update_gap"}
+        assert set(cell.limits) == set(cell.algorithm.LIMITS)
+        if cell.algorithm is spec.algorithm("DRQN"):
+            assert set(cell.limits) == {"act_gap", "env_gap", "loss_gap",
+                                        "grad_gap", "update_gap"}
 
 
 def test_traffic_files_name_only_known_keys():
     for w in BENCH["workloads"]:
-        tp = spec.cell(w["name"], BENCH).traffic_params
-        assert set(tp) <= spec.TRAFFIC_KEYS
-        assert {"num_envs", "chunk_slots", "start_slot", "why"} <= set(tp)
+        cell = spec.cell(w["name"], BENCH)
+        tp = cell.traffic_params
+        assert set(tp) <= spec.TRAFFIC_KEYS | set(cell.algorithm.TRAFFIC_KEYS)
+        assert {"num_envs", "why"} <= set(tp)
+        if cell.algorithm is spec.algorithm("DRQN"):
+            assert {"chunk_slots", "start_slot"} <= set(tp)
 
 
 @pytest.mark.parametrize("n_batch,episodes", [(1, 4), (2, 2), (4, 2)])
@@ -34,9 +39,9 @@ def test_setup_runs_the_episodes_the_check_follows(n_batch, episodes):
     one's loss, and at least two events."""
     from types import SimpleNamespace
 
-    from benchmark.harness import capture
+    drqn = spec.algorithm("DRQN")
     cfg = SimpleNamespace(agent=SimpleNamespace(n_batch=n_batch))
-    assert capture.setup_episodes(cfg) == episodes
+    assert drqn.setup_episodes(cfg) == episodes
 
 
 def test_every_reader_loads():

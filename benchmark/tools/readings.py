@@ -1,27 +1,22 @@
 """The readings that a cell's limits are set from, in one process on the
 card: the check's numbers for a dozen seeds of the program as the
-configuration states it (the lower readings), for the bf16 control
-(``compute_dtype: bfloat16``, the program's own lower-precision path)
-and for faults planted in the program (the upper readings).  Each run is
-the cell's own set-up at its own sizes, followed by the check; the
-benchmark's runs never call this.
+configuration states it (the lower readings), for the lower-precision
+control and for faults planted in the program (the upper readings).
+The control's overrides, the faults and how each is planted are the
+cell's algorithm module's (``CONTROL``, ``faults``, ``planted``; DRQN's
+in benchmark/algorithms/drqn.py).  Each run is the cell's own set-up at
+its own sizes, followed by the check; the benchmark's runs never call
+this.
 
     python3 benchmark/tools/readings.py --workload <name> --seeds 12 \
         --control 3 --faults 3 [--out FILE]
 
-Faults: ``half_batch`` (the loss's mean over half of each batch),
-``reward`` (the env step's reward of each env's first vehicle moved by
-0.5 where it is produced), and on a data mesh ``exchange`` (the window
-batch's all-reduce between the cards left out).  A cell on several
-cards runs one process a card, as benchmark/run.py does.  A gradient step that leaves the weights
-unchanged reads 1 in ``update_gap`` by that number's definition and
-needs no run (benchmark/tests/test_benchmark_faults.py plants it on the
-CPU)."""
+A cell on several cards runs one process a card, as benchmark/run.py
+does."""
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import json
 import os
@@ -36,83 +31,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from benchmark.harness import capture, ranks, spec  # noqa: E402
-from benchmark.harness.cell import join_mesh  # noqa: E402
-from benchmark.reference import check  # noqa: E402
-from diral_tpu_torch.agents import drqn  # noqa: E402
+from benchmark.harness import ranks, spec  # noqa: E402
+from benchmark.harness.cell import join_mesh, program_config  # noqa: E402
 from diral_tpu_torch.config import load_config  # noqa: E402
-from diral_tpu_torch.envs import v2v_env as E  # noqa: E402
-from diral_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 SEED0 = 2_147_483_000
-
-
-@contextlib.contextmanager
-def planted(fault: str | None):
-    """The program with ``fault`` planted for the duration."""
-    if fault is None:
-        yield
-        return
-    if fault == "half_batch":
-        orig = drqn._td_loss
-
-        def half(q, actions, targets, cfg):
-            n = q.shape[0] // 2
-            return orig(q[:n], actions[:n], targets[:n], cfg)
-        drqn._td_loss = half
-        try:
-            yield
-        finally:
-            drqn._td_loss = orig
-    elif fault == "reward":
-        orig = E.step_channel
-
-        def altered(cfg, state, actions, t, trace=None):
-            state, obs, rews = orig(cfg, state, actions, t, trace)
-            rews = rews.clone()
-            rews[:, 0] += 0.5
-            return state, obs, rews
-        E.step_channel = altered
-        try:
-            yield
-        finally:
-            E.step_channel = orig
-    elif fault == "exchange":
-        orig = pmesh.all_reduce_sum
-        pmesh.all_reduce_sum = lambda x, mesh: x
-        try:
-            yield
-        finally:
-            pmesh.all_reduce_sum = orig
-    elif fault == "unchanged":
-        orig = torch.optim.Adam.step
-
-        def no_step(self, closure=None):
-            return None
-        torch.optim.Adam.step = no_step
-        try:
-            yield
-        finally:
-            torch.optim.Adam.step = orig
-    else:
-        raise ValueError(f"unknown fault {fault!r}")
 
 
 def reading(cell, seed: int, device, overrides=None, fault=None,
             mesh=None):
     """The check's numbers for one seed of the cell's set-up (on rank 0;
     the other ranks of a mesh return None)."""
-    tp = cell.traffic_params
-    cfg = capture.program_config(load_config(cell.config_path), tp,
-                                 overrides)
-    with planted(fault):
-        fns, carry, draws, _, cap = capture.set_up(
-            cfg, seed, device, int(tp["start_slot"]), mesh=mesh)
-    del fns, carry, draws
+    tp, algo = cell.traffic_params, cell.algorithm
+    cfg = program_config(load_config(cell.config_path), tp, overrides)
+    with algo.planted(fault):
+        session = algo.set_up(cfg, tp, seed, device, mesh)
+    cap = session.capture
+    session.close()
+    del session
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = (check.run(cap, cfg, device)
+    numbers = (algo.check(cap, cfg, device)
                if mesh is None or mesh.rank == 0 else None)
     if mesh is not None:
         dist.barrier()
@@ -142,11 +82,10 @@ def main(argv=None) -> int:
                                 if argv is None else argv, cell.chips, port)
         device, mesh = join_mesh(cell.traffic_params["mesh"], args.rank,
                                  cell.chips, port, device)
+    algo = cell.algorithm
     plan = [("sound", None, None)] * args.seeds
-    plan += [("control", {"network.compute_dtype": "bfloat16"}, None)] \
-        * args.control
-    faults = ["half_batch", "reward"] + (["exchange"] if mesh else [])
-    for fault in faults:
+    plan += [("control", algo.CONTROL, None)] * args.control
+    for fault in algo.faults(mesh):
         plan += [(fault, None, fault)] * args.faults
     out = open(args.out, "w") if args.out and args.rank == 0 else None
     for k, (kind, overrides, fault) in enumerate(plan):
